@@ -12,17 +12,31 @@ per phase:
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA;
   build    ``nvcc`` builds the hand-written histogram kernel from the
            sources in the checkout;
-  kernels  the kernel against its plain PyTorch version on the same inputs
-           at the fit's shapes (and three edge shapes), with its time, the
-           plain version's, one ``index_add_`` call's, and the bound;
+  kernels  each entry of the kernel (the fused fit's stump histograms, the
+           grower's node histograms) against its plain PyTorch version on
+           the same inputs at the fits' shapes and at edge shapes (tiled
+           shared memory, a fold axis, int32 bins, float64, all rows
+           inactive), node counts exactly; with its time, the plain
+           version's, one ``index_add_`` call's, and the bound;
   train    ``gbdt.fit`` of the reference GBDT member (100 depth-1 stumps,
            256 hist bins) on ``--rows`` x 17 synthetic-cohort rows through
            the kernel, against the same fit through the plain version
            (deviance paths at rtol 1e-4, train AUC within 0.005), plus a
            profiler breakdown of one warm fit;
-  serve    ``stacking.predict_proba`` with that forest as the GBDT member
-           and seeded scaler/SVC/LR/meta parameters, on the card and on the
-           CPU, at (1e-5, 1e-8).
+  train_depth  the same fit at ``max_depth=3`` (device binning, then the
+           level-wise grower, then the node kernel: one launch per level),
+           held to its plain-version fit the same way, with a profile;
+  sweep    ``sweep.cv_sweep`` at ``bench.py`` config 4's shape (5-fold CV
+           over n_estimators (25, 50, 100) x max_depth (1, 2, 3) on
+           ``--sweep-rows`` cohort rows), through the kernel and through the
+           plain version, mean-AUC grids within 0.005;
+  serve    ``stacking.predict_proba`` with the depth-1 forest as the GBDT
+           member and seeded scaler/SVC/LR/meta parameters, on the card and
+           on the CPU, at (1e-5, 1e-8).
+
+Launch counts are set to 0 just before each of train, train_depth, sweep
+and serve and read just after; each kernel entry must have launched on
+that path.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -43,9 +57,11 @@ import numpy as np
 import torch
 
 from machine_learning_replications_tpu_torch import convert
-from machine_learning_replications_tpu_torch.config import GBDTConfig
+from machine_learning_replications_tpu_torch.config import GBDTConfig, SweepConfig
 from machine_learning_replications_tpu_torch.data import make_cohort, selected_indices
-from machine_learning_replications_tpu_torch.models import gbdt, linear, scaler, stacking, svm, tree
+from machine_learning_replications_tpu_torch.models import (
+    gbdt, linear, scaler, stacking, svm, sweep, tree,
+)
 from machine_learning_replications_tpu_torch.ops import binning, cuda_histogram, histogram
 
 # Published peaks by H100 part (NVIDIA data sheets, dense, at the full power
@@ -57,7 +73,11 @@ PEAKS = {
 }
 TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-9, 1e-9)}  # (rtol, atol)
 KERNEL_SOURCE = "machine_learning_replications_tpu_torch/ops/csrc/histogram.cu"
-TPU_KERNEL = "machine_learning_replications_tpu/ops/pallas_histogram.py:160"
+TPU_KERNELS = {
+    "stump_histograms": "machine_learning_replications_tpu/ops/pallas_histogram.py:160",
+    "node_histograms": "machine_learning_replications_tpu/ops/pallas_histogram.py:127",
+}
+STATS = ("grad", "hess", "grad2", "count")
 
 
 def emit(obj: dict) -> None:
@@ -239,6 +259,94 @@ def phase_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> di
     return {"max_abs_err": checks[0]["max_abs_err"], **timing}
 
 
+def phase_node_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> dict:
+    """``node_histograms_cuda`` against the plain ``histogram.node_histograms``:
+    the depth-3 fit's levels (K = 1, 2, 4 on the 1M-row bin matrix, K = 4
+    in two shared-memory feature tiles, three at float64), K = 64 (cell-range
+    tiles), a five-fold batch, a small int32 / float64 shape and all rows
+    inactive. Counts must be equal exactly; the other statistics are held
+    per cell to their absolute mass (``compare``)."""
+    n, F = binned.shape
+    B = 256
+    rng = np.random.default_rng(seed + 3)
+    checks = []
+
+    def run(name, bins, node, gg, hh, K, nb):
+        got = cuda_histogram.node_histograms_cuda(bins, node, gg, hh, K, nb)
+        want = histogram.node_histograms(bins, node, gg, hh, K, nb)
+        mass = histogram.node_histograms(bins, node, gg.abs(), hh.abs(), K, nb)
+        torch.cuda.synchronize()
+        stats = {st: compare(getattr(got, st), getattr(want, st), getattr(mass, st), gg.dtype)
+                 for st in STATS}
+        counts_exact = bool(torch.equal(got.count, want.count))
+        res = {"shape": name, "n": bins.shape[-2], "F": F if bins.dim() > 1 else None,
+               "K": K, "B": nb, "folds": node.shape[0] if node.dim() == 2 else None,
+               "bins": str(bins.dtype).replace("torch.", ""),
+               "vals": str(gg.dtype).replace("torch.", ""),
+               "tile": cuda_histogram.tile_plan(bins.shape[-1], 4, K * nb, gg.element_size(),
+                                                cuda_histogram.smem_budget(dev)),
+               "counts_exact": counts_exact,
+               "max_abs_err": max(v["max_abs_err"] for v in stats.values()),
+               "max_err_over_mass": max(v["max_err_over_mass"] for v in stats.values()),
+               "ok": counts_exact and all(v["ok"] for v in stats.values())}
+        checks.append(res)
+        check(res["ok"], f"node kernel vs plain at {name}: {res} {stats}")
+        return got
+
+    def nodes(K, rows, lead=()):
+        return torch.as_tensor(rng.integers(-1, K, size=lead + (rows,)).astype(np.int32),
+                               device=dev)
+
+    for K in (1, 2, 4):
+        run(f"fit_level_K{K}", binned, nodes(K, n), g, h, K, B)
+    node4 = nodes(4, n)
+    run("fit_level_K4_f64", binned, node4, g.double(), h.double(), 4, B)
+    m = 100_000
+    run("cells_K64", binned[:m], nodes(64, m), g[:m], h[:m], 64, B)
+    run("folds5_K4", binned[:50_000], nodes(4, 50_000, (5,)), g[:50_000].expand(5, -1),
+        h[:50_000].expand(5, -1), 4, B)
+    b2 = torch.as_tensor(rng.integers(0, 33, size=(257, 3)).astype(np.int32), device=dev)
+    v2 = torch.as_tensor(rng.normal(size=(2, 257)), device=dev)
+    run("non_aligned", b2, nodes(8, 257), v2[0], v2[1].abs(), 8, 33)
+    z = run("all_inactive", binned, torch.full((n,), -1, dtype=torch.int32, device=dev), g, h,
+            4, B)
+    check(not any(bool(a.any()) for a in z), "all rows inactive give zero histograms")
+
+    # Times at depth 3's last level (K = 4), cold L2.
+    K = 4
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    active = (node4 >= 0).float()
+    vals = torch.stack([g * active, h * active, g * g * active, active], dim=1).contiguous()
+    seg = (node4.clamp_min(0) * B).to(torch.int32)
+    ids = ((node4.clamp_min(0).long()[:, None] * F + torch.arange(F, device=dev)[None, :]) * B
+           + binned.long()).reshape(-1)
+    src = vals[:, None, :].expand(n, F, 4).reshape(n * F, 4).contiguous()
+    lib_out = torch.zeros(K * F * B, 4, dtype=torch.float32, device=dev)
+    ms = timed_ms(lambda: cuda_histogram.node_histograms_cuda(binned, node4, g, h, K, B), flush)
+    kernel_ms = timed_ms(lambda: cuda_histogram._launch(binned, seg, vals, K * B,
+                                                        "node_histograms"), flush)
+    plain_ms = timed_ms(lambda: histogram.node_histograms(binned, node4, g, h, K, B), flush,
+                        reps=20)
+    library_ms = timed_ms(lambda: lib_out.index_add_(0, ids, src), flush)
+    del flush, src, ids
+    # The bound: the wrapper's inputs (u8 bins, int32 nodes, float32 g and h)
+    # read once and its four [K, F, B] float32 outputs written once, over HBM;
+    # 4 additions per active (row, feature) over the float32 rate.
+    nbytes = n * F * binned.element_size() + n * 4 + 2 * n * 4 + 4 * K * F * B * 4
+    ops = 4 * F * int((node4 >= 0).sum())
+    bytes_ms = nbytes / peaks["bytes"] * 1e3
+    ops_ms = ops / peaks["float32"] * 1e3
+    timing = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "bytes": nbytes, "ops": ops, "reps": 30, "l2": "flushed before each call",
+              "timed_shape": {"n": n, "F": F, "K": K, "B": B, "inactive_share":
+                              float((node4 < 0).float().mean())}}
+    emit({"phase": "kernels", "kernel": "node_histograms", "checks": checks, **timing})
+    worst = max(checks, key=lambda c: c["max_err_over_mass"])
+    return {"max_abs_err": checks[2]["max_abs_err"], "worst_err_over_mass": worst, **timing}
+
+
 def fit_timed(Xd, yd, cfg, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -247,12 +355,14 @@ def fit_timed(Xd, yd, cfg, dev):
     return params, aux, time.perf_counter() - t0
 
 
-def profile_fit(Xd, yd, cfg, dev) -> dict:
-    """Device time by kernel over one warm fit, and the device's idle share."""
+def profile_call(fn) -> dict:
+    """Device time by kernel over one warm call of ``fn`` (which ends in a
+    synchronize and returns its host-clock seconds), and the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = fit_timed(Xd, yd, cfg, dev)
+        wall = fn()
     by_name = {}
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -267,41 +377,105 @@ def profile_fit(Xd, yd, cfg, dev) -> dict:
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
-def phase_train(X17, yf, dev) -> tuple:
-    cfg = GBDTConfig(splitter="hist", n_estimators=100)
+def fit_vs_plain(X17, yf, cfg, dev, counter: str) -> tuple[dict, object, dict]:
+    """The main path's fit through the kernel (launch counts from 0, read
+    right after), warm refits, then the same fit through the plain version:
+    deviance paths at rtol 1e-4, train AUC within 0.005, and a profile of
+    one warm fit."""
     Xd = torch.as_tensor(X17, device=dev)
     yd = torch.as_tensor(yf, device=dev)
-    check(gbdt.uses_fused_hist1(cfg, Xd.shape[0]), "the fit takes the fused path")
-    # The main path's run: launch counts from 0, read right after the fit.
     cuda_histogram.reset_launch_counts()
     params, aux, cold = fit_timed(Xd, yd, cfg, dev)
     launches = dict(cuda_histogram.LAUNCHES)
-    check(launches["stump_histograms"] == cfg.n_estimators,
-          f"one kernel launch per stage: {launches}")
+    per_fit = cfg.n_estimators * cfg.max_depth
+    check(launches[counter] == per_fit, f"one {counter} launch per tree level: {launches}")
     warm = [fit_timed(Xd, yd, cfg, dev)[2] for _ in range(3)]
     p_fit = tree.predict_proba1(params, Xd).cpu().numpy()
     auc = roc_auc(yf, p_fit)
     plain_cfg = dataclasses.replace(cfg, histogram_backend="xla")
     plain, plain_aux, plain_s = fit_timed(Xd, yd, plain_cfg, dev)
     auc_plain = roc_auc(yf, tree.predict_proba1(plain, Xd).cpu().numpy())
-    dk = aux["train_deviance"].double().cpu()
-    dp = plain_aux["train_deviance"].double().cpu()
+    dk = torch.as_tensor(aux["train_deviance"]).double().cpu()
+    dp = torch.as_tensor(plain_aux["train_deviance"]).double().cpu()
     dev_rel = ((dk - dp).abs() / dp.abs()).max().item()
     check(bool(torch.isfinite(dk).all()) and dk.shape == (cfg.n_estimators,), "finite deviance path")
     check(float(dk[-1]) < float(dk[0]), "deviance falls over the fit")
     check(dev_rel <= 1e-4, f"deviance paths agree at rtol 1e-4: {dev_rel}")
     check(abs(auc - auc_plain) <= 0.005, f"AUC within 0.005 of the plain fit: {auc} {auc_plain}")
-    check(params.feature.shape == (cfg.n_estimators, 3) and params.value.dtype == torch.float32,
+    nn = 2 ** (cfg.max_depth + 1) - 1
+    check(params.feature.shape == (cfg.n_estimators, nn) and params.value.dtype == torch.float32,
           "forest shape and dtype")
-    prof = profile_fit(Xd, yd, cfg, dev)
-    split_agree = float((params.feature[:, 0] == plain.feature[:, 0]).float().mean())
-    emit({"phase": "train", "rows": int(Xd.shape[0]), "features": int(Xd.shape[1]),
-          "n_estimators": cfg.n_estimators, "n_bins": cfg.n_bins, "launches": launches,
-          "cold_fit_s": cold, "warm_fit_s": statistics.median(warm), "warm_fit_runs_s": warm,
-          "plain_fit_s": plain_s, "auc": auc, "auc_plain": auc_plain,
-          "deviance_first_last": [float(dk[0]), float(dk[-1])], "deviance_max_rel_diff": dev_rel,
-          "split_feature_agreement": split_agree, "profile_warm_fit": prof})
+    prof = profile_call(lambda: fit_timed(Xd, yd, cfg, dev)[2])
+    split_agree = float((params.feature == plain.feature).float().mean())
+    out = {"rows": int(Xd.shape[0]), "features": int(Xd.shape[1]),
+           "n_estimators": cfg.n_estimators, "max_depth": cfg.max_depth, "n_bins": cfg.n_bins,
+           "launches": launches, "cold_fit_s": cold, "warm_fit_s": statistics.median(warm),
+           "warm_fit_runs_s": warm, "plain_fit_s": plain_s, "auc": auc, "auc_plain": auc_plain,
+           "deviance_first_last": [float(dk[0]), float(dk[-1])], "deviance_max_rel_diff": dev_rel,
+           "split_feature_agreement": split_agree, "profile_warm_fit": prof}
+    return out, params, launches
+
+
+def phase_train(X17, yf, dev) -> tuple:
+    cfg = GBDTConfig(splitter="hist", n_estimators=100)
+    check(gbdt.uses_fused_hist1(cfg, X17.shape[0]), "the fit takes the fused path")
+    out, params, launches = fit_vs_plain(X17, yf, cfg, dev, "stump_histograms")
+    emit({"phase": "train", **out})
     return params, launches
+
+
+def phase_train_depth(X17, yf, dev) -> dict:
+    cfg = GBDTConfig(splitter="hist", max_depth=3, n_estimators=100, n_bins=256)
+    check(X17.shape[0] >= gbdt.DEVICE_BINNING_MIN_ROWS, "the fit bins on the device")
+    out, _, launches = fit_vs_plain(X17, yf, cfg, dev, "node_histograms")
+    emit({"phase": "train_depth", **out})
+    return launches
+
+
+def phase_sweep(rows: int, seed: int, dev) -> dict:
+    """``bench.py`` config 4: the 5-fold CV sweep on a ``rows``-row cohort,
+    through the node kernel and through its plain version."""
+    X, y, _ = make_cohort(n=rows, seed=seed)
+    X17 = np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32)
+    yf = np.asarray(y, dtype=np.float32)
+    scfg = SweepConfig(n_estimators_grid=(25, 50, 100), max_depth_grid=(1, 2, 3), cv_folds=5)
+    kernel_base, plain_base = GBDTConfig(), GBDTConfig(histogram_backend="xla")
+
+    def run(base):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep.cv_sweep(X17, yf, scfg, base, device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # The main path's run (counts from 0, read right after), then the plain
+    # sweep and a warm kernel sweep in turn, then a profile of one more.
+    cuda_histogram.reset_launch_counts()
+    rk, sk = run(kernel_base)
+    launches = dict(cuda_histogram.LAUNCHES)
+    cuda_histogram.reset_launch_counts()
+    rp, sp = run(plain_base)
+    lp = dict(cuda_histogram.LAUNCHES)
+    sk_warm = run(kernel_base)[1]
+    prof = profile_call(lambda: run(kernel_base)[1])
+    levels = max(scfg.n_estimators_grid) * sum(scfg.max_depth_grid)
+    check(launches["node_histograms"] == levels,
+          f"one node-kernel launch per tree level of all folds: {launches}")
+    check(lp["node_histograms"] == 0, f"the plain sweep launches no kernel: {lp}")
+    diff = float(np.abs(rk.mean_auc - rp.mean_auc).max())
+    check(bool(np.isfinite(rk.fold_auc).all()) and rk.fold_auc.shape == (3, 3, 5),
+          "finite [depth, n_estimators, fold] AUC grid")
+    check(diff <= 0.005, f"mean-AUC grids within 0.005: {diff}")
+    emit({"phase": "sweep", "rows": rows, "features": 17, "folds": scfg.cv_folds,
+          "n_estimators_grid": list(scfg.n_estimators_grid),
+          "max_depth_grid": list(scfg.max_depth_grid), "launches": launches,
+          "seconds": sk, "warm_seconds": sk_warm, "plain_seconds": sp,
+          "mean_auc": rk.mean_auc.tolist(),
+          "mean_auc_plain": rp.mean_auc.tolist(), "mean_auc_max_abs_diff": diff,
+          "best": [rk.best_max_depth, rk.best_n_estimators, rk.best_mean_auc],
+          "best_plain": [rp.best_max_depth, rp.best_n_estimators, rp.best_mean_auc],
+          "profile_warm_sweep": prof})
+    return launches
 
 
 def serving_params(gbdt_params, X17: np.ndarray, seed: int) -> stacking.StackingParams:
@@ -359,7 +533,9 @@ def phase_serve(gbdt_params, X17, seed, dev) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=1_000_000, help="cohort rows for the fit")
+    ap.add_argument("--rows", type=int, default=1_000_000, help="cohort rows for the fits")
+    ap.add_argument("--sweep-rows", type=int, default=50_000,
+                    help="cohort rows for the CV sweep (bench.py config 4's default)")
     ap.add_argument("--seed", type=int, default=2020, help="seed of the cohort and parameters")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -377,22 +553,30 @@ def main(argv=None) -> int:
     yf = np.asarray(y, dtype=np.float32)
     del X, y
     binned, g, h = stage_inputs(X17, yf, args.seed, dev)
-    kern = phase_kernels(binned, g, h, peaks, args.seed, dev)
+    kern = {"stump_histograms": phase_kernels(binned, g, h, peaks, args.seed, dev),
+            "node_histograms": phase_node_kernels(binned, g, h, peaks, args.seed, dev)}
     del binned, g, h
     torch.cuda.empty_cache()
 
+    # The main path, one phase at a time: counts from 0 before, read after.
     gbdt_params, train_launches = phase_train(X17, yf, dev)
+    depth_launches = phase_train_depth(X17, yf, dev)
+    torch.cuda.empty_cache()
+    sweep_launches = phase_sweep(args.sweep_rows, args.seed, dev)
     serve_launches = phase_serve(gbdt_params, X17, args.seed, dev)
-    launches = train_launches["stump_histograms"] + serve_launches["stump_histograms"]
-    check(launches > 0, "the main path launched the kernel")
+    launches = {name: sum(run[name] for run in (train_launches, depth_launches,
+                                                 sweep_launches, serve_launches))
+                for name in kern}
+    for name, count in launches.items():
+        check(count > 0, f"the main path launched the {name} kernel")
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
-        "name": "stump_histograms", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
-    }]})
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNELS[name], "launches": launches[name],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+    } for name, k in kern.items()]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,7 +14,7 @@ the JAX package): the field names and defaults are identical, so an
 ``GBDTConfig.histogram_backend`` keeps its four values; the PyTorch port
 maps 'auto'/'pallas' to the hand-written CUDA histogram kernel on a CUDA
 tensor and 'xla'/'matmul' to its plain PyTorch version
-(``ops.histogram.stump_histograms``).
+(``ops.histogram.stump_histograms``, ``models.gbdt.resolve_hist_fn``).
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ CUDA device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -54,3 +55,10 @@ def float_dtype(*tensors: torch.Tensor) -> torch.dtype:
     for t in tensors:
         dt = torch.promote_types(dt, t.dtype)
     return dt
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor on any device, or anything array-like, as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

@@ -1,1 +1,1 @@
-"""Model members (scaler, SVC, GBDT, logistic regressions) and stacking."""
+"""Model members (scaler, SVC, GBDT, logistic regressions), stacking and the CV sweep."""

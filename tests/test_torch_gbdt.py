@@ -10,6 +10,8 @@ The fit through the kernel itself needs the card: it is in
 ``tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -94,13 +96,25 @@ def test_fused_fit_rejects_nan(x17, fused_gate):
 
 @pytest.mark.parametrize("cfg,match", [
     (GBDTConfig(splitter="exact"), "_fit_stumps"),
-    (GBDTConfig(splitter="hist", max_depth=2), "_fit_binned"),
+    # ported since: the level-wise grower fits and matches JAX
+    (GBDTConfig(splitter="hist", max_depth=2, n_estimators=8, n_bins=32), None),
     (GBDTConfig(splitter="hist", n_estimators=1), "_fit_stump_host"),
 ])
 def test_unported_regimes_raise(x17, fused_gate, cfg, match):
     X, y = x17
-    with pytest.raises(NotImplementedError, match=match):
+    if match is None:
+        got, aux = gbdt.fit(X, y, cfg, device="cpu")
+        want, want_aux = jgbdt.fit(X, y, JGBDTConfig(**dataclasses.asdict(cfg)))
+        for name in ("feature", "threshold", "left", "right"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, name)), err_msg=name)
+        np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                                   rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(aux["train_deviance"], want_aux["train_deviance"], rtol=1e-9)
+        return
+    with pytest.raises(NotImplementedError, match=match) as err:
         gbdt.fit(X, y, cfg, device="cpu")
+    assert "ROADMAP A-next-2" in str(err.value)
 
 
 def test_small_hist_fit_names_unported_path(x17):

@@ -176,6 +176,18 @@ def test_newton_leaf_value_matches_jax():
     )
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_newton_leaf_value_guard_below_float64(dtype):
+    """The 1e-150 guard lies below every nonzero float32, so there it must
+    read as den == 0: an empty node's 0/0 gives 0, as in float64, not NaN."""
+    num = torch.tensor([0.0, 1.0, -2.0, 3.0])
+    den = torch.tensor([0.0, 0.0, 4.0, 1e-30])
+    want = histogram.newton_leaf_value(num.double(), den.double())
+    got = histogram.newton_leaf_value(num.to(dtype), den.to(dtype))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got[:3].double(), want[:3], rtol=0, atol=0)
+
+
 def test_rbf_kernel_matches_jax():
     rng = np.random.default_rng(11)
     x, y = rng.normal(size=(40, 17)), rng.normal(size=(25, 17))
