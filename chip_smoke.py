@@ -13,10 +13,13 @@ per phase:
   build    ``nvcc`` builds the hand-written histogram kernel from the
            sources in the checkout;
   kernels  each entry of the kernel (the fused fit's stump histograms, the
-           grower's node histograms) against its plain PyTorch version on
-           the same inputs at the fits' shapes and at edge shapes (tiled
-           shared memory, a fold axis, int32 bins, float64, all rows
-           inactive), node counts exactly; with its time, the plain
+           grower's node histograms, the general entry) against its plain
+           PyTorch version on the same inputs at the fits' shapes and at
+           edge shapes (tiled shared memory, fold axes with aligned and
+           unaligned strides, the warp aggregation's best and worst bin
+           patterns, ragged row counts, int32 bins, float64, all rows
+           inactive), node counts exactly; with its time on the cohort's
+           bins and on uniform bins (the contention probe), the plain
            version's, one ``index_add_`` call's, and the bound;
   train    ``gbdt.fit`` of the reference GBDT member (100 depth-1 stumps,
            256 hist bins) on ``--rows`` x 17 synthetic-cohort rows through
@@ -190,7 +193,40 @@ def stage_inputs(X17: np.ndarray, y: np.ndarray, seed: int, dev: torch.device):
     return binned, g, h
 
 
+def pattern_bins(kind: str, rng, n: int, F: int, B: int, dev) -> torch.Tensor:
+    """u8 bin matrices that stress the kernel's warp aggregation:
+    ``uniform`` (the contention probe's), ``dominant`` (95% of rows in one
+    bin, like the cohort's two-valued columns), ``one_cell`` (every row in
+    one bin: one peer group per warp step), ``distinct`` (32 consecutive
+    rows in 32 bins: no peers)."""
+    if kind == "uniform":
+        b = rng.integers(0, B, size=(n, F))
+    elif kind == "dominant":
+        b = np.where(rng.random((n, F)) < 0.95, 7, rng.integers(0, B, size=(n, F)))
+    elif kind == "one_cell":
+        b = np.full((n, F), 3)
+    else:
+        b = (np.arange(n)[:, None] + 5 * np.arange(F)[None, :]) % B
+    return torch.as_tensor(b.astype(np.uint8), device=dev)
+
+
+def bound(nbytes: int, ops: int, peaks: dict, dtype: str) -> dict:
+    """The least time for the work: bytes over HBM's rate, operations over
+    the float rate of their type; the larger of the two."""
+    bytes_ms = nbytes / peaks["bytes"] * 1e3
+    ops_ms = ops / peaks[dtype] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
 def phase_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> dict:
+    """``stump_histograms_cuda`` against the plain
+    ``histogram.stump_histograms_reference``: the fit's shape (also in
+    float64), the aggregation's best and worst bin patterns at a ragged row
+    count, int32 bins, n < 32, binary bins, zero statistics and the general
+    entry; then times at the fit's shape, on the cohort's bins and on
+    uniform bins (the contention probe)."""
     n, F = binned.shape
     B = 256
     rng = np.random.default_rng(seed + 1)
@@ -210,17 +246,24 @@ def phase_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> di
         return got
 
     run("fit", binned, g, h, B)
-    # Non-aligned shape, int32 bins, float64 statistics.
+    run("fit_f64", binned, g.double(), h.double(), B)
+    m = 200_003  # no multiple of 16: the last staged block loads by ordinary loads
+    for kind in ("dominant", "one_cell", "distinct"):
+        run(f"{kind}_bins", pattern_bins(kind, rng, m, F, B, dev), g[:m], h[:m], B)
+    # Non-aligned shape, int32 bins, float64 statistics; n < 32.
     b2 = torch.as_tensor(rng.integers(0, 33, size=(257, 3)).astype(np.int32), device=dev)
     v2 = torch.as_tensor(rng.normal(size=(2, 257)), device=dev)
     run("non_aligned", b2, v2[0], v2[1].abs(), 33)
-    # All-binary bins: the worst case for shared-atomic contention.
+    run("n20", binned[:20], g[:20], h[:20], B)
+    # All-binary bins at the fit's size.
     b3 = torch.as_tensor(rng.integers(0, 2, size=(n, F)).astype(np.uint8), device=dev)
     run("binary", b3, g, h, 2)
+    del b3
     # All-zero statistics: the histogram must come out exactly zero.
     z = run("zero_vals", binned, torch.zeros_like(g), torch.zeros_like(h), B)
     check(not bool(z.any()), "zero statistics give a zero histogram")
-    # The general contract (node segments, four statistics, a cell past kb).
+    # The general entry: node segments, four statistics, a cell past kb; and
+    # six statistics (two passes of four) over three folds.
     K, Bn = 8, 33
     bins4 = torch.as_tensor(rng.integers(0, Bn + 1, size=(3001, 6)).astype(np.int32), device=dev)
     seg4 = torch.as_tensor((rng.integers(0, K, size=3001) * Bn).astype(np.int32), device=dev)
@@ -232,40 +275,51 @@ def phase_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> di
                      plain(vals4), plain(vals4.abs()), torch.float64)}
     checks.append(res)
     check(res["ok"], f"general kernel vs plain: {res}")
+    seg6 = torch.as_tensor(rng.integers(0, 5 * Bn, size=(3, 3001)).astype(np.int32), device=dev)
+    vals6 = torch.as_tensor(rng.normal(size=(3, 3001, 6)).astype(np.float32), device=dev)
+    got6 = cuda_histogram.stats_histograms_cuda(bins4, seg6, vals6, K * Bn)
+    for i in range(3):
+        want6 = histogram.stats_histograms_reference(bins4, seg6[i], vals6[i], K * Bn)
+        mass6 = histogram.stats_histograms_reference(bins4, seg6[i], vals6[i].abs(), K * Bn)
+        res = {"shape": f"general_s6_fold{i}", "n": 3001, "F": 6, "S": 6, "bins": "int32",
+               "vals": "float32", **compare(got6[i], want6, mass6, torch.float32)}
+        checks.append(res)
+        check(res["ok"], f"general kernel vs plain: {res}")
 
-    # Times at the fit's shape, cold L2.
+    # Times at the fit's shape, cold L2; the same call on uniform bins.
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    uniform = pattern_bins("uniform", rng, n, F, B, dev)
     vals = torch.stack([g, h], dim=1)
     ids = (torch.arange(F, device=dev)[None, :] * B + binned.long()).reshape(-1)
     src = vals[:, None, :].expand(n, F, 2).reshape(n * F, 2).contiguous()
     lib_out = torch.zeros(F * B, 2, dtype=torch.float32, device=dev)
     ms = timed_ms(lambda: cuda_histogram.stump_histograms_cuda(binned, g, h, B), flush)
-    kernel_ms = timed_ms(lambda: cuda_histogram._launch(binned, None, vals, B, "stump_histograms"),
-                         flush)
+    uniform_ms = timed_ms(lambda: cuda_histogram.stump_histograms_cuda(uniform, g, h, B), flush)
     plain_ms = timed_ms(lambda: histogram.stump_histograms_reference(binned, g, h, B), flush)
     library_ms = timed_ms(lambda: lib_out.index_add_(0, ids, src), flush)
-    del flush, src, ids
+    del flush, src, ids, uniform
     # The bound: each input read once and the output written once, over HBM;
     # n*F*2 float32 additions over the float32 rate.
-    nbytes = n * F * binned.element_size() + 2 * n * g.element_size() + 2 * F * B * 4
-    ops = 2 * n * F
-    bytes_ms = nbytes / peaks["bytes"] * 1e3
-    ops_ms = ops / peaks["float32"] * 1e3
-    timing = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-              "bytes": nbytes, "ops": ops, "reps": 30, "l2": "flushed before each call"}
+    timing = {"ms": ms, "uniform_bins_ms": uniform_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              **bound(n * F * binned.element_size() + 2 * n * g.element_size() + 2 * F * B * 4,
+                      2 * n * F, peaks, "float32"),
+              "reps": 30, "l2": "flushed before each call"}
     emit({"phase": "kernels", "kernel": "stump_histograms", "checks": checks, **timing})
     return {"max_abs_err": checks[0]["max_abs_err"], **timing}
 
 
 def phase_node_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> dict:
     """``node_histograms_cuda`` against the plain ``histogram.node_histograms``:
-    the depth-3 fit's levels (K = 1, 2, 4 on the 1M-row bin matrix, K = 4
-    in two shared-memory feature tiles, three at float64), K = 64 (cell-range
-    tiles), a five-fold batch, a small int32 / float64 shape and all rows
-    inactive. Counts must be equal exactly; the other statistics are held
-    per cell to their absolute mass (``compare``)."""
+    the depth-3 fit's levels (K = 1, 2, 4 on the 1M-row bin matrix with
+    int32 node ids, as the grower hands them; K = 4 in two shared-memory
+    feature tiles, three at float64), K = 64 (cell-range tiles), a five-fold
+    batch over expanded statistics, three folds whose strides break the bulk
+    copy's alignment, the aggregation's bin patterns, a small int32 bins /
+    float64 shape, n < 32 and all rows inactive. Counts must be equal exactly; the
+    other statistics are held per cell to their absolute mass
+    (``compare``). Then times at depth 3's last level, on the cohort's bins
+    and on uniform bins (the contention probe)."""
     n, F = binned.shape
     B = 256
     rng = np.random.default_rng(seed + 3)
@@ -279,12 +333,15 @@ def phase_node_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) 
         stats = {st: compare(getattr(got, st), getattr(want, st), getattr(mass, st), gg.dtype)
                  for st in STATS}
         counts_exact = bool(torch.equal(got.count, want.count))
-        res = {"shape": name, "n": bins.shape[-2], "F": F if bins.dim() > 1 else None,
+        row_bytes = (bins.shape[-1] * bins.element_size(), node.element_size(),
+                     gg.element_size(), hh.element_size())
+        res = {"shape": name, "n": bins.shape[-2], "F": bins.shape[-1],
                "K": K, "B": nb, "folds": node.shape[0] if node.dim() == 2 else None,
                "bins": str(bins.dtype).replace("torch.", ""),
+               "nodes": str(node.dtype).replace("torch.", ""),
                "vals": str(gg.dtype).replace("torch.", ""),
-               "tile": cuda_histogram.tile_plan(bins.shape[-1], 4, K * nb, gg.element_size(),
-                                                cuda_histogram.smem_budget(dev)),
+               "plan": cuda_histogram.tile_plan(bins.shape[-1], 4, K * nb, gg.element_size(),
+                                                cuda_histogram.smem_budget(dev), row_bytes),
                "counts_exact": counts_exact,
                "max_abs_err": max(v["max_abs_err"] for v in stats.values()),
                "max_err_over_mass": max(v["max_err_over_mass"] for v in stats.values()),
@@ -305,46 +362,55 @@ def phase_node_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) 
     run("cells_K64", binned[:m], nodes(64, m), g[:m], h[:m], 64, B)
     run("folds5_K4", binned[:50_000], nodes(4, 50_000, (5,)), g[:50_000].expand(5, -1),
         h[:50_000].expand(5, -1), 4, B)
+    m = 100_001  # fold strides of 1,700,017 bin bytes and 400,004 / 800,008 value bytes
+    fold_bins = torch.stack([binned[:m], binned[1:m + 1], binned[2:m + 2]])
+    run("folds3_unaligned", fold_bins, nodes(4, m, (3,)), torch.stack([g[:m]] * 3),
+        torch.stack([h[:m]] * 3), 4, B)
+    del fold_bins
+    m = 200_003
+    for kind in ("dominant", "one_cell", "distinct"):
+        run(f"{kind}_bins_K4", pattern_bins(kind, rng, m, F, B, dev), nodes(4, m), g[:m],
+            h[:m], 4, B)
     b2 = torch.as_tensor(rng.integers(0, 33, size=(257, 3)).astype(np.int32), device=dev)
     v2 = torch.as_tensor(rng.normal(size=(2, 257)), device=dev)
     run("non_aligned", b2, nodes(8, 257), v2[0], v2[1].abs(), 8, 33)
+    run("n20", binned[:20], nodes(2, 20), g[:20], h[:20], 2, B)
     z = run("all_inactive", binned, torch.full((n,), -1, dtype=torch.int32, device=dev), g, h,
             4, B)
     check(not any(bool(a.any()) for a in z), "all rows inactive give zero histograms")
 
-    # Times at depth 3's last level (K = 4), cold L2.
+    # Times at depth 3's last level (K = 4, int32 node ids as the grower's),
+    # cold L2; the same call on uniform bins.
     K = 4
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    uniform = pattern_bins("uniform", rng, n, F, B, dev)
     active = (node4 >= 0).float()
-    vals = torch.stack([g * active, h * active, g * g * active, active], dim=1).contiguous()
-    seg = (node4.clamp_min(0) * B).to(torch.int32)
-    ids = ((node4.clamp_min(0).long()[:, None] * F + torch.arange(F, device=dev)[None, :]) * B
+    vals = torch.stack([g * active, h * active, g * g * active, active], dim=1)
+    ids = ((node4.clamp_min(0)[:, None] * F + torch.arange(F, device=dev)[None, :]) * B
            + binned.long()).reshape(-1)
     src = vals[:, None, :].expand(n, F, 4).reshape(n * F, 4).contiguous()
     lib_out = torch.zeros(K * F * B, 4, dtype=torch.float32, device=dev)
     ms = timed_ms(lambda: cuda_histogram.node_histograms_cuda(binned, node4, g, h, K, B), flush)
-    kernel_ms = timed_ms(lambda: cuda_histogram._launch(binned, seg, vals, K * B,
-                                                        "node_histograms"), flush)
+    uniform_ms = timed_ms(lambda: cuda_histogram.node_histograms_cuda(uniform, node4, g, h, K, B),
+                          flush)
     plain_ms = timed_ms(lambda: histogram.node_histograms(binned, node4, g, h, K, B), flush,
                         reps=20)
     library_ms = timed_ms(lambda: lib_out.index_add_(0, ids, src), flush)
-    del flush, src, ids
+    del flush, src, ids, uniform
     # The bound: the wrapper's inputs (u8 bins, int32 nodes, float32 g and h)
     # read once and its four [K, F, B] float32 outputs written once, over HBM;
     # 4 additions per active (row, feature) over the float32 rate.
-    nbytes = n * F * binned.element_size() + n * 4 + 2 * n * 4 + 4 * K * F * B * 4
-    ops = 4 * F * int((node4 >= 0).sum())
-    bytes_ms = nbytes / peaks["bytes"] * 1e3
-    ops_ms = ops / peaks["float32"] * 1e3
-    timing = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-              "bytes": nbytes, "ops": ops, "reps": 30, "l2": "flushed before each call",
-              "timed_shape": {"n": n, "F": F, "K": K, "B": B, "inactive_share":
-                              float((node4 < 0).float().mean())}}
+    timing = {"ms": ms, "uniform_bins_ms": uniform_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              **bound(n * F * binned.element_size() + n * node4.element_size() + 2 * n * 4
+                      + 4 * K * F * B * 4, 4 * F * int((node4 >= 0).sum()), peaks, "float32"),
+              "reps": 30, "l2": "flushed before each call",
+              "timed_shape": {"n": n, "F": F, "K": K, "B": B, "nodes": "int32",
+                              "inactive_share": float((node4 < 0).float().mean())}}
     emit({"phase": "kernels", "kernel": "node_histograms", "checks": checks, **timing})
     worst = max(checks, key=lambda c: c["max_err_over_mass"])
-    return {"max_abs_err": checks[2]["max_abs_err"], "worst_err_over_mass": worst, **timing}
+    main = next(c for c in checks if c["shape"] == "fit_level_K4")
+    return {"max_abs_err": main["max_abs_err"], "worst_err_over_mass": worst, **timing}
 
 
 def fit_timed(Xd, yd, cfg, dev):

@@ -15,7 +15,8 @@ Port of the JAX package's ``models/gbdt.py`` for two regimes:
 
 Numerics match sklearn's binomial-deviance GBC as the JAX fit does:
 F₀ = prior log-odds, residual r = y − σ(F), leaves re-valued by the Newton
-step Σr / Σp(1−p) (guarded at |den| < 1e-150), F += lr·leaf, and
+step Σr / Σp(1−p) (0 where |den| < 1e-150 in float64, where den == 0
+below float64: ``ops.histogram.newton_leaf_value``), F += lr·leaf, and
 ``train_deviance[m] = −2·mean(y·F − log(1+eᶠ))``.
 
 The stage loops are eager PyTorch with no host sync: split columns and rows
@@ -439,7 +440,7 @@ def make_tree_grower(
     min_samples_split: int,
     min_samples_leaf: int,
     hist_fn,
-    node_init: torch.Tensor | None = None,  # [k, n] int, −1 ⇒ inactive row
+    node_init: torch.Tensor | None = None,  # [k, n] int32, −1 ⇒ inactive row
     reduce_fn=lambda a: a,     # cross-shard reduction (a sum over data shards)
 ):
     """Build the level-synchronous tree-growth step: one copy of the split
@@ -450,7 +451,8 @@ def make_tree_grower(
 
     Returns ``grow_tree(g, h) -> (feat_t, thr_t, val_t, split_t, node)``:
     for ``[k, n]`` gradients and hessians, k trees as ``[k, NN]`` heap-layout
-    rows and each row's final ``[k, n]`` node (parked rows stay −1).
+    rows and each row's final ``[k, n]`` int32 node (parked rows stay −1).
+    Node ids are int32 throughout, as the node kernel reads them.
     """
     n, F = binned.shape[-2:]
     NN = 2 ** (depth + 1) - 1
@@ -471,7 +473,7 @@ def make_tree_grower(
 
     def grow_tree(g: torch.Tensor, h: torch.Tensor):
         k = g.shape[0]
-        node = (torch.zeros((k, n), dtype=torch.long, device=dev) if node_init is None
+        node = (torch.zeros((k, n), dtype=torch.int32, device=dev) if node_init is None
                 else node_init)
         feat_t = torch.zeros((k, NN), dtype=torch.int32, device=dev)
         thr_t = torch.full((k, NN), torch.inf, dtype=dtype, device=dev)
@@ -487,7 +489,7 @@ def make_tree_grower(
             thr_t[:, base:base + K] = torch.where(sp.do_split, sp.threshold, inf).to(dtype)
             split_t[:, base:base + K] = sp.do_split
             # Route rows of split nodes to their children; others park.
-            kk = torch.clamp_min(node_local, 0)
+            kk = torch.clamp_min(node_local, 0).long()  # gather's index dtype
             splits_here = (node_local >= 0) & torch.gather(sp.do_split, 1, kk)
             col = torch.take(binned, row_base + torch.gather(sp.feature, 1, kk))
             go_left = col <= torch.gather(sp.boundary, 1, kk)
@@ -581,7 +583,7 @@ def _run_binned(
         g = yf - p          # residual (negative gradient of deviance)
         h = p * (1.0 - p)   # Newton denominator terms
         feat_t, thr_t, val_t, split_t, node = grow_tree(g[None], h[None])
-        raw = raw + learning_rate * val_t[0][node[0]]
+        raw = raw + learning_rate * val_t[0][node[0].long()]
         devs[t] = -2.0 * torch.mean(yf * raw - torch.logaddexp(zero, raw))
         feats[t], thrs[t], vals[t], splits[t] = feat_t[0], thr_t[0], val_t[0], split_t[0]
     return raw, feats, thrs, vals, splits, devs
@@ -617,7 +619,7 @@ def _run_binned_folds(
         min_samples_split=min_samples_split,
         min_samples_leaf=min_samples_leaf,
         hist_fn=resolve_hist_fn(backend),
-        node_init=torch.where(w > 0, 0, -1),
+        node_init=torch.where(w > 0, 0, -1).to(torch.int32),
     )
     raw = f0[:, None].expand(k, n).clone()
     feats = torch.zeros((k, n_stages, NN), dtype=torch.int32, device=dev)
@@ -629,6 +631,6 @@ def _run_binned_folds(
         g = (yf - p) * w
         h = p * (1.0 - p) * w
         feat_t, thr_t, val_t, split_t, node = grow_tree(g, h)
-        raw = raw + learning_rate * torch.gather(val_t, 1, torch.clamp_min(node, 0)) * w
+        raw = raw + learning_rate * torch.gather(val_t, 1, torch.clamp_min(node, 0).long()) * w
         feats[:, t], thrs[:, t], vals[:, t], splits[:, t] = feat_t, thr_t, val_t, split_t
     return feats, thrs, vals, splits, f0

@@ -84,6 +84,9 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
         cuda_histogram.stump_histograms_cuda(binned.t().contiguous().t(), g, h, 16)
     with pytest.raises(ValueError, match="expected binned"):
         cuda_histogram.stump_histograms_cuda(binned, g[:50], h, 16)
+    node = torch.zeros(100, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError, match="node ids must be int32"):
+        cuda_histogram.node_histograms_cuda(binned, node, g, h, 2, 16)
 
 
 
@@ -143,6 +146,150 @@ def test_node_histograms_kernel_fold_axis(cuda_device, fold_bins):
     assert cuda_histogram.LAUNCHES["node_histograms"] == before + 1
     assert got.grad.shape == (5, 4, 17, 256)
     _assert_node_close(got, histogram.node_histograms(*args, 4, 256), 1e-5)
+
+
+MASS_TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-9, 1e-9)}  # (rtol, atol)
+
+
+def _assert_close_to_mass(got, want, mass):
+    """Cell by cell within ``atol + rtol·Σ|terms|`` (``chip_smoke.compare``):
+    a float sum taken in another order errs in proportion to its terms'
+    absolute mass, not to its possibly cancelled result."""
+    rtol, atol = MASS_TOL[want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.double() - want.double()).abs()
+    bad = diff > atol + rtol * mass.double()
+    assert bool(torch.isfinite(got).all()) and not bool(bad.any()), (
+        f"{int(bad.sum())} cells off; worst {diff.max().item()}")
+
+
+def _pattern_bins(kind, rng, n, F, B, dtype):
+    """Bin matrices that stress the warp aggregation: ``dominant`` puts 95%
+    of rows in one bin (the cohort's two-valued columns), ``one_cell`` every
+    row in one bin (one peer group per warp step), ``distinct`` 32
+    consecutive rows in 32 different bins (no peers at all)."""
+    if kind == "uniform":
+        b = rng.integers(0, B, size=(n, F))
+    elif kind == "dominant":
+        b = np.where(rng.random((n, F)) < 0.95, 7 % B, rng.integers(0, B, size=(n, F)))
+    elif kind == "one_cell":
+        b = np.full((n, F), 3 % B)
+    else:
+        b = (np.arange(n)[:, None] + 5 * np.arange(F)[None, :]) % B
+    return b.astype(dtype)
+
+
+def _check_stump(dev, binned, g, h, B):
+    got = cuda_histogram.stump_histograms_cuda(binned, g, h, B)
+    torch.cuda.synchronize()
+    want = histogram.stump_histograms_reference(binned, g, h, B)
+    _assert_close_to_mass(got, want, histogram.stump_histograms_reference(binned, g.abs(),
+                                                                          h.abs(), B))
+
+
+def _check_node(dev, binned, node, g, h, K, B):
+    got = cuda_histogram.node_histograms_cuda(binned, node, g, h, K, B)
+    torch.cuda.synchronize()
+    want = histogram.node_histograms(binned, node, g, h, K, B)
+    mass = histogram.node_histograms(binned, node, g.abs(), h.abs(), K, B)
+    torch.testing.assert_close(got.count, want.count, rtol=0, atol=0)  # counts exact
+    for stat in ("grad", "hess", "grad2", "count"):
+        _assert_close_to_mass(getattr(got, stat), getattr(want, stat), getattr(mass, stat))
+
+
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bin_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("kind", ["dominant", "one_cell", "distinct"])
+def test_stump_kernel_bin_patterns(cuda_device, kind, bin_dtype, val_dtype):
+    """The aggregation's best and worst cases, float64 shuffles included, at
+    a row count that is no multiple of 16 (a ragged last block)."""
+    rng = np.random.default_rng(11)
+    n, F, B = 4099, 17, 256
+    binned = torch.as_tensor(_pattern_bins(kind, rng, n, F, B, bin_dtype), device=cuda_device)
+    g = torch.as_tensor(rng.normal(size=n).astype(val_dtype), device=cuda_device)
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=n).astype(val_dtype), device=cuda_device)
+    _check_stump(cuda_device, binned, g, h, B)
+
+
+@pytest.mark.parametrize("inactive", [0.2, 0.95])
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["dominant", "one_cell", "distinct"])
+def test_node_kernel_bin_patterns(cuda_device, kind, val_dtype, inactive):
+    """Node mode with 20% or 95% inactive rows (at 95% about one warp in
+    five has no active row and skips its chunk), K = 1 for ``one_cell``
+    (every active row of a warp in one cell) and K = 4 (two shared-memory
+    tiles in float32) otherwise."""
+    rng = np.random.default_rng(12)
+    n, F, B = 4099, 17, 256
+    K = 1 if kind == "one_cell" else 4
+    binned = torch.as_tensor(_pattern_bins(kind, rng, n, F, B, np.uint8), device=cuda_device)
+    node = np.where(rng.random(n) < inactive, -1, rng.integers(0, K, size=n)).astype(np.int32)
+    g = rng.normal(size=n).astype(val_dtype)
+    h = rng.uniform(0.01, 0.25, size=n).astype(val_dtype)
+    _check_node(cuda_device, binned, *(torch.as_tensor(a, device=cuda_device)
+                                       for a in (node, g, h)), K, B)
+
+
+@pytest.mark.parametrize("n", [1, 20, 31, 33, 1037, 2063])
+def test_kernels_at_ragged_row_counts(cuda_device, n):
+    """n < 32, and n no multiple of 16 or of a staged block's rows: the last
+    block loads by ordinary loads."""
+    rng = np.random.default_rng(n)
+    F, B, K = 17, 64, 2
+    binned = torch.as_tensor(rng.integers(0, B, size=(n, F)).astype(np.uint8), device=cuda_device)
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=cuda_device)
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=n).astype(np.float32), device=cuda_device)
+    node = torch.as_tensor(rng.integers(-1, K, size=n).astype(np.int32), device=cuda_device)
+    _check_stump(cuda_device, binned, g, h, B)
+    _check_node(cuda_device, binned, node, g, h, K, B)
+
+
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+def test_node_kernel_unaligned_fold_strides(cuda_device, val_dtype):
+    """Per-fold bins ``[3, 1001, 17]`` (a fold stride of 17017 bytes), and
+    statistics and node ids whose fold strides are no multiple of 16 bytes:
+    every fold but the first loads by ordinary loads."""
+    rng = np.random.default_rng(5)
+    k, n, F, K, B = 3, 1001, 17, 4, 256
+    binned = rng.integers(0, B, size=(k, n, F)).astype(np.uint8)
+    node = rng.integers(-1, K, size=(k, n)).astype(np.int32)
+    g = rng.normal(size=(k, n)).astype(val_dtype)
+    h = rng.uniform(0.01, 0.25, size=(k, n)).astype(val_dtype)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (binned, node, g, h)]
+    got = cuda_histogram.node_histograms_cuda(*args, K, B)
+    assert got.grad.shape == (k, K, F, B)
+    _check_node(cuda_device, *args, K, B)
+
+
+def test_node_kernel_broadcast_fold_statistics(cuda_device):
+    """Fold statistics given as an ``expand`` of one row vector (fold
+    stride 0) read the same rows in every fold, with no copy."""
+    rng = np.random.default_rng(6)
+    n, F, K, B = 3000, 17, 4, 256
+    binned = torch.as_tensor(rng.integers(0, B, size=(n, F)).astype(np.uint8), device=cuda_device)
+    node = torch.as_tensor(rng.integers(-1, K, size=(5, n)).astype(np.int32), device=cuda_device)
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=cuda_device)
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=n).astype(np.float32), device=cuda_device)
+    _check_node(cuda_device, binned, node, g.expand(5, -1), h.expand(5, -1), K, B)
+
+
+@pytest.mark.parametrize("S", [1, 4, 6])
+def test_stats_kernel_general_entry(cuda_device, S):
+    """The general entry at S not 2 or 4 (S = 6 takes two passes of four),
+    with a fold axis over shared bins and without one."""
+    rng = np.random.default_rng(S)
+    k, n, F, kb = 3, 2500, 5, 40
+    bins = torch.as_tensor(rng.integers(0, 36, size=(n, F)).astype(np.int32), device=cuda_device)
+    seg = torch.as_tensor(rng.integers(0, 5, size=(k, n)).astype(np.int32), device=cuda_device)
+    vals = torch.as_tensor(rng.normal(size=(k, n, S)), device=cuda_device)
+    got = cuda_histogram.stats_histograms_cuda(bins, seg, vals, kb)
+    assert got.shape == (k, S, F, kb)
+    for i in range(k):
+        want = histogram.stats_histograms_reference(bins, seg[i], vals[i], kb)
+        mass = histogram.stats_histograms_reference(bins, seg[i], vals[i].abs(), kb)
+        _assert_close_to_mass(got[i], want, mass)
+        one = cuda_histogram.stats_histograms_cuda(bins, seg[i], vals[i], kb)
+        _assert_close_to_mass(one, want, mass)
 
 
 def test_depth3_fit_kernel_matches_plain(cuda_device):

@@ -179,20 +179,62 @@ def test_device_binning_matches_jax(x17):
         binning.bin_features_device(torch.as_tensor(Xn), 32)
 
 
-@pytest.mark.parametrize("F,S,kb,itemsize,want", [
-    (17, 2, 256, 4, (17, 256)),          # the fused fit's stump pass: one tile
-    (17, 4, 4 * 256, 4, (9, 1024)),      # depth 3's last level: 2 feature tiles
-    (17, 4, 4 * 256, 8, (6, 1024)),      # the same in float64: 3 feature tiles
-    (17, 4, 64 * 256, 4, (1, 8192)),     # one feature alone is over: cell ranges
-    (3, 2, 1 << 16, 8, (1, 13108)),      # a 65536-bin float64 stump: 5 cell ranges
+@pytest.mark.parametrize("F,S,kb,itemsize,row_bytes,want", [
+    # Without a staging ring: the tiles alone.
+    (17, 2, 256, 4, (), (17, 256, 1024)),          # the fused fit's stump pass: one tile
+    (17, 4, 4 * 256, 4, (), (9, 1024, 1024)),      # depth 3's last level: 2 feature tiles
+    (17, 4, 4 * 256, 8, (), (6, 1024, 1024)),      # the same in float64: 3 feature tiles
+    (17, 4, 64 * 256, 4, (), (1, 8192, 1024)),     # one feature alone is over: cell ranges
+    (3, 2, 1 << 16, 8, (), (1, 13108, 1024)),      # a 65536-bin float64 stump: 5 cell ranges
+    # With the ring of the main path's launches reserved (bins, node ids, g, h).
+    (17, 2, 256, 4, (17, 4, 4), (17, 256, 1024)),           # stump, u8 bins
+    (17, 4, 4 * 256, 4, (17, 4, 4, 4), (9, 1024, 1024)),    # depth 3, int32 nodes: 2 tiles
+    (17, 4, 4 * 256, 8, (17, 4, 8, 8), (6, 1024, 256)),     # float64: fewer rows keep 3 tiles
+    (17, 4, 4 * 256, 4, (68, 4, 4, 4), (9, 1024, 512)),     # int32 bins: 2 tiles at 512 rows
+    (17, 4, 64 * 256, 4, (17, 4, 4, 4), (1, 8192, 1024)),   # K = 64: cell ranges
+    (3, 2, 1 << 16, 8, (12, 8, 8), (1, 13108, 256)),        # 65536 bins: 5 ranges at 256 rows
 ])
-def test_tile_plan_fits_the_budget(F, S, kb, itemsize, want):
+def test_tile_plan_fits_the_budget(F, S, kb, itemsize, row_bytes, want):
     budget = 232_448  # H100's opt-in shared memory per CTA
-    tf, tc = cuda_histogram.tile_plan(F, S, kb, itemsize, budget)
-    assert (tf, tc) == want
-    assert S * tf * tc * itemsize <= budget
+    tf, tc, rows = cuda_histogram.tile_plan(F, S, kb, itemsize, budget, row_bytes)
+    assert (tf, tc, rows) == want
+    ring = cuda_histogram.BARRIER_BYTES + cuda_histogram.STAGES * cuda_histogram.stage_bytes(
+        rows, row_bytes)
+    assert S * tf * tc * itemsize + ring <= budget
+    assert rows in cuda_histogram.BLOCK_ROWS and rows % 32 == 0
     with pytest.raises(ValueError, match="do not fit"):
-        cuda_histogram.tile_plan(F, 64, kb, 8, 256)
+        cuda_histogram.tile_plan(F, 64, kb, 8, 256, ())
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_histogram.tile_plan(F, 2, kb, 4, 2_000, (4_000,))   # the ring alone is over
+
+
+def test_stage_bytes_round_each_input_to_16():
+    """Each staged input starts on a 16-byte boundary (the bulk copy's unit),
+    as the kernel lays its stage out."""
+    assert cuda_histogram.stage_bytes(1024, (17, 4, 4)) == 17 * 1024 + 2 * 4096
+    assert cuda_histogram.stage_bytes(32, (17,)) == 544
+    assert cuda_histogram.stage_bytes(33, (17, 1)) == 576 + 48
+    assert cuda_histogram.stage_bytes(1024, ()) == 0
+
+
+def test_fold_stride_of_kernel_inputs():
+    """The fold stride the wrapper hands the kernel: 0 without a fold axis
+    or for an ``expand``ed one, ``stride(0)`` otherwise; the inner
+    dimensions must be contiguous."""
+    fs = cuda_histogram._fold_stride
+    g = torch.arange(12.0)
+    assert fs(g, "grad", 1, None) == 0
+    assert fs(g.reshape(3, 4), "grad", 1, 3) == 4
+    assert fs(g[:4].expand(5, -1), "grad", 1, 5) == 0
+    bins = torch.zeros((2, 7, 3), dtype=torch.uint8)
+    assert fs(bins, "bins", 2, 2) == 21
+    assert fs(bins[0], "bins", 2, 2) == 0          # one bin matrix shared by the folds
+    with pytest.raises(ValueError, match="contiguous"):
+        fs(g.reshape(3, 4)[:, ::2], "grad", 1, 3)
+    with pytest.raises(ValueError, match="leading fold axis of 4"):
+        fs(g.reshape(3, 4), "grad", 1, 4)
+    with pytest.raises(ValueError, match="expected 1 dimensions"):
+        fs(bins, "grad", 1, None)
 
 
 @pytest.fixture
