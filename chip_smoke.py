@@ -29,17 +29,33 @@ per phase:
   train_depth  the same fit at ``max_depth=3`` (device binning, then the
            level-wise grower, then the node kernel: one launch per level),
            held to its plain-version fit the same way, with a profile;
+  fit_exact  ``gbdt.fit(X17, y, GBDTConfig())``: the default 'exact'
+           splitter at depth 1, 100 stumps, on the reference cohort (1427
+           rows) and on config 4's 50,000 rows, every unique-value midpoint a
+           candidate, so the stump kernel takes int32 bins with B up to
+           n (and, at 50,000 rows, cuts each feature's cells into ranges); held to the plain-version fit (forests equal but for a
+           tie, deviance at rtol 1e-4, AUC within 0.005), with a profile;
   sweep    ``sweep.cv_sweep`` at ``bench.py`` config 4's shape (5-fold CV
            over n_estimators (25, 50, 100) x max_depth (1, 2, 3) on
            ``--sweep-rows`` cohort rows), through the kernel and through the
            plain version, mean-AUC grids within 0.005;
   serve    ``stacking.predict_proba`` with the depth-1 forest as the GBDT
            member and seeded scaler/SVC/LR/meta parameters, on the card and
-           on the CPU, at (1e-5, 1e-8).
+           on the CPU, at (1e-5, 1e-8);
+  predict  the reference's ``predict`` route: a full-pipeline model (the
+           1-NN imputer over all 64 variables, the serve phase's ensemble)
+           saved and loaded as a port checkpoint, ``cli predict --model`` in
+           a subprocess on the card against the CPU port's line, and
+           ``pipeline_predict_proba1_contract`` on [1, 17] and [100000, 17]
+           contract rows, card against CPU, donors included.
 
-Launch counts are set to 0 just before each of train, train_depth, sweep
-and serve and read just after; each kernel entry must have launched on
-that path.
+The kernel phase also checks and times the stump entry at the exact
+splitter's shapes: int32 bins, B = the cohort's unique values per column
+(1427 at 1427 rows, 49,861 at 50,000).
+
+Launch counts are set to 0 just before each of train, train_depth,
+fit_exact, sweep, serve and predict and read just after; each kernel entry
+must have launched on that path, and none on the predict path.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -55,6 +71,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,7 +80,7 @@ from machine_learning_replications_tpu_torch import convert
 from machine_learning_replications_tpu_torch.config import GBDTConfig, SweepConfig
 from machine_learning_replications_tpu_torch.data import make_cohort, selected_indices
 from machine_learning_replications_tpu_torch.models import (
-    gbdt, linear, scaler, stacking, svm, sweep, tree,
+    gbdt, knn_impute, linear, pipeline, scaler, stacking, svm, sweep, tree,
 )
 from machine_learning_replications_tpu_torch.ops import binning, cuda_histogram, histogram
 
@@ -179,18 +196,22 @@ def phase_build() -> None:
 
 
 def stage_inputs(X17: np.ndarray, y: np.ndarray, seed: int, dev: torch.device):
-    """The fit's histogram inputs: the u8 bin matrix of the cohort and a
-    mid-fit (g, h) = (y - p, p(1 - p)) in float32."""
+    """The fused fit's histogram inputs: the u8 device-quantile bin matrix of
+    the cohort and a mid-fit (g, h)."""
     Xd = torch.as_tensor(X17, device=dev)
     binned, _, nan_flag = binning.device_binning_core(Xd, 256)
     check(not bool(nan_flag), "cohort has no NaN")
-    binned = binned.to(torch.uint8)
+    return binned.to(torch.uint8), *mid_fit_stats(y, seed, dev)
+
+
+def mid_fit_stats(y: np.ndarray, seed: int, dev: torch.device):
+    """A mid-fit (g, h) = (y - p, p(1 - p)) in float32, from prior log-odds
+    scores spread by seeded noise."""
     rng = np.random.default_rng(seed)
     raw = np.log(y.mean() / (1 - y.mean())) + rng.normal(0.0, 0.7, size=y.shape[0])
     p = 1.0 / (1.0 + np.exp(-raw))
-    g = torch.as_tensor((y - p).astype(np.float32), device=dev)
-    h = torch.as_tensor((p * (1 - p)).astype(np.float32), device=dev)
-    return binned, g, h
+    return (torch.as_tensor((y - p).astype(np.float32), device=dev),
+            torch.as_tensor((p * (1 - p)).astype(np.float32), device=dev))
 
 
 def pattern_bins(kind: str, rng, n: int, F: int, B: int, dev) -> torch.Tensor:
@@ -289,24 +310,76 @@ def phase_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> di
     # Times at the fit's shape, cold L2; the same call on uniform bins.
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     uniform = pattern_bins("uniform", rng, n, F, B, dev)
-    vals = torch.stack([g, h], dim=1)
-    ids = (torch.arange(F, device=dev)[None, :] * B + binned.long()).reshape(-1)
-    src = vals[:, None, :].expand(n, F, 2).reshape(n * F, 2).contiguous()
-    lib_out = torch.zeros(F * B, 2, dtype=torch.float32, device=dev)
-    ms = timed_ms(lambda: cuda_histogram.stump_histograms_cuda(binned, g, h, B), flush)
-    uniform_ms = timed_ms(lambda: cuda_histogram.stump_histograms_cuda(uniform, g, h, B), flush)
-    plain_ms = timed_ms(lambda: histogram.stump_histograms_reference(binned, g, h, B), flush)
-    library_ms = timed_ms(lambda: lib_out.index_add_(0, ids, src), flush)
-    del flush, src, ids, uniform
-    # The bound: each input read once and the output written once, over HBM;
-    # n*F*2 float32 additions over the float32 rate.
-    timing = {"ms": ms, "uniform_bins_ms": uniform_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms,
-              **bound(n * F * binned.element_size() + 2 * n * g.element_size() + 2 * F * B * 4,
-                      2 * n * F, peaks, "float32"),
-              "reps": 30, "l2": "flushed before each call"}
+    timing = {**time_stump(binned, g, h, B, flush, peaks),
+              "uniform_bins_ms": timed_ms(
+                  lambda: cuda_histogram.stump_histograms_cuda(uniform, g, h, B), flush)}
+    del flush, uniform
     emit({"phase": "kernels", "kernel": "stump_histograms", "checks": checks, **timing})
     return {"max_abs_err": checks[0]["max_abs_err"], **timing}
+
+
+def time_stump(binned, g, h, B: int, flush, peaks: dict) -> dict:
+    """The stump kernel's time per call on these inputs (cold L2), its plain
+    version's, one ``index_add_`` computing the same sums, and the bound:
+    each input read once and the ``[2, F, B]`` output written once over HBM,
+    n*F*2 additions over the statistics' float rate."""
+    n, F = binned.shape
+    ids = (torch.arange(F, device=binned.device)[None, :] * B + binned.long()).reshape(-1)
+    src = torch.stack([g, h], dim=1)[:, None, :].expand(n, F, 2).reshape(n * F, 2).contiguous()
+    lib_out = torch.zeros(F * B, 2, dtype=g.dtype, device=binned.device)
+    out = {"ms": timed_ms(lambda: cuda_histogram.stump_histograms_cuda(binned, g, h, B), flush),
+           "plain_ms": timed_ms(lambda: histogram.stump_histograms_reference(binned, g, h, B),
+                                flush),
+           "library_ms": timed_ms(lambda: lib_out.index_add_(0, ids, src), flush),
+           **bound(n * F * binned.element_size() + 2 * n * g.element_size()
+                   + 2 * F * B * g.element_size(), 2 * n * F, peaks,
+                   str(g.dtype).replace("torch.", "")),
+           "reps": 30, "l2": "flushed before each call"}
+    return out
+
+
+def exact_inputs(rows: int, seed: int, dev: torch.device):
+    """The exact splitter's histogram inputs at ``rows`` cohort rows: the
+    int32 bins of every unique-value midpoint of the 17 selected variables
+    (``binning.bin_features(X, None)``, as ``gbdt.fit`` bins them), a mid-fit
+    (g, h) and the bin count B."""
+    X, y, _ = make_cohort(n=rows, seed=seed)
+    X17 = np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32)
+    bins = binning.bin_features(X17, None)
+    return (torch.as_tensor(bins.binned, device=dev), *mid_fit_stats(y, seed + 5, dev),
+            bins.max_bins)
+
+
+def phase_exact_kernels(peaks: dict, seed: int, dev: torch.device) -> list:
+    """``stump_histograms_cuda`` at the exact splitter's shapes: int32 bins
+    with B = the unique-value midpoints + 1 of the reference cohort (1427
+    rows, one tile) and of config 4's 50,000 rows (one feature's cells cut
+    into ranges), float32 and float64, against the plain version with
+    ``compare``'s mass-scaled tolerance; then timed (float32)."""
+    shapes = []
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    for rows in (1427, 50_000):
+        binned, g, h, B = exact_inputs(rows, seed, dev)
+        n, F = binned.shape
+        check(binned.dtype == torch.int32 and B > 256, f"exact bins are int32 past 256: {B}")
+        checks = []
+        for gg, hh in ((g, h), (g.double(), h.double())):
+            got = cuda_histogram.stump_histograms_cuda(binned, gg, hh, B)
+            want = histogram.stump_histograms_reference(binned, gg, hh, B)
+            mass = histogram.stump_histograms_reference(binned, gg.abs(), hh.abs(), B)
+            torch.cuda.synchronize()
+            res = {"vals": str(gg.dtype).replace("torch.", ""), **compare(got, want, mass, gg.dtype)}
+            checks.append(res)
+            check(res["ok"], f"stump kernel vs plain at exact bins n={n} B={B}: {res}")
+        plan = cuda_histogram.tile_plan(F, 2, B, 4, cuda_histogram.smem_budget(dev),
+                                        (F * 4, 4, 4))
+        shapes.append({"n": n, "F": F, "B": B, "bins": "int32", "plan": plan,
+                       "tiles": -(-F // plan[0]) * -(-B // plan[1]), "checks": checks,
+                       "max_abs_err": checks[0]["max_abs_err"],
+                       **time_stump(binned, g, h, B, flush, peaks)})
+    del flush
+    emit({"phase": "kernels", "kernel": "stump_histograms", "shapes": "exact", "exact": shapes})
+    return shapes
 
 
 def phase_node_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> dict:
@@ -544,6 +617,109 @@ def phase_sweep(rows: int, seed: int, dev) -> dict:
     return launches
 
 
+def stump_gains(binned, thresholds, ys, raw) -> torch.Tensor:
+    """The friedman proxy of every (feature, boundary) split at raw scores
+    ``raw``, from the plain histograms in float64 (``select_splits``'
+    arithmetic, -inf where a side is empty or the boundary is padding)."""
+    p = torch.sigmoid(raw.double())
+    g = ys.double() - p
+    B = thresholds.shape[1] + 1
+    hist = histogram.stump_histograms_reference(binned, g, p * (1 - p), B)
+    cnt = histogram.stump_histograms_reference(binned, torch.ones_like(g), torch.ones_like(g), B)
+    GL = torch.cumsum(hist[0], dim=1)[:, :-1]
+    CL = torch.cumsum(cnt[0], dim=1)[:, :-1]
+    n = float(binned.shape[0])
+    GR, CR = g.sum() - GL, n - CL
+    diff = GL / CL.clamp_min(1) - GR / CR.clamp_min(1)
+    ok = (CL >= 1) & (CR >= 1) & torch.isfinite(thresholds)
+    return torch.where(ok, diff * diff * CL * CR, -torch.inf)
+
+
+def forests_agree(kernel, plain, X17, yf, dev) -> dict:
+    """Kernel and plain depth-1 forests hold the same (feature, threshold)
+    at every stage, except where the plain fit shows a tie: at the first
+    stage where they differ, both splits' gains under the plain fit's own
+    scores must agree within 1e-5 relative (float32 sums regroup). Later
+    stages follow different scores and are held by the deviance and AUC
+    gates only."""
+    fk, fp = kernel.feature[:, 0], plain.feature[:, 0]
+    tk, tp = kernel.threshold[:, 0], plain.threshold[:, 0]
+    same = (fk == fp) & (tk == tp)
+    out = {"stages_equal": int(same.sum()), "stages": int(same.numel()),
+           "first_divergent_stage": None}
+    if bool(same.all()):
+        return out
+    t = int(torch.nonzero(~same)[0, 0])
+    bins = binning.bin_features(X17, None)
+    binned = torch.as_tensor(bins.binned, device=dev)
+    thresholds = torch.as_tensor(bins.thresholds, dtype=torch.float32, device=dev)
+    head = dataclasses.replace(plain, **{k: getattr(plain, k)[:t] for k in
+                                         ("feature", "threshold", "left", "right", "value")})
+    raw = tree.raw_score(head, torch.as_tensor(X17, device=dev))
+    gains = stump_gains(binned, thresholds, torch.as_tensor(yf, device=dev), raw)
+
+    def gain(f, thr):
+        b = int(torch.searchsorted(thresholds[f].double(), float(thr)))
+        return float(gains[f, b])
+
+    gk, gp = gain(int(fk[t]), tk[t]), gain(int(fp[t]), tp[t])
+    rel = abs(gk - gp) / max(abs(gp), 1e-300)
+    check(rel <= 1e-5, f"kernel and plain forests differ at stage {t} without a tie: "
+                       f"gains {gk} vs {gp}")
+    out.update(first_divergent_stage=t, tie_gain_rel_gap=rel)
+    return out
+
+
+def phase_fit_exact(seed: int, dev) -> dict:
+    """``gbdt.fit(X17, y, GBDTConfig())`` — the reference member as the
+    repo defaults it: 'exact', depth 1, 100 stumps — on the reference cohort
+    (``make_cohort(1427)``, the reference's width and depth) and on config
+    4's 50,000 rows, float32, through the stump kernel at int32 bins (one
+    launch per stage), against the same fit through the plain version:
+    forests equal but for a tie the plain fit shows, deviance paths at rtol
+    1e-4, train AUC within 0.005; with a profile of one warm fit."""
+    cfg = GBDTConfig()
+    runs = []
+    launches = {}
+    for rows in (1427, 50_000):
+        X, y, _ = make_cohort(n=rows, seed=seed)
+        X17 = np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32)
+        yf = np.asarray(y, dtype=np.float32)
+        check(not gbdt.uses_fused_hist1(cfg, rows), "the exact fit bins on the host")
+        cuda_histogram.reset_launch_counts()
+        params, aux, cold = fit_timed(X17, yf, cfg, dev)
+        run_launches = dict(cuda_histogram.LAUNCHES)
+        check(run_launches["stump_histograms"] == cfg.n_estimators,
+              f"one stump launch per stage: {run_launches}")
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        warm = [fit_timed(X17, yf, cfg, dev)[2] for _ in range(3)]
+        plain, plain_aux, plain_s = fit_timed(X17, yf, dataclasses.replace(
+            cfg, histogram_backend="xla"), dev)
+        Xd = torch.as_tensor(X17, device=dev)
+        auc = roc_auc(yf, tree.predict_proba1(params, Xd).cpu().numpy())
+        auc_plain = roc_auc(yf, tree.predict_proba1(plain, Xd).cpu().numpy())
+        dk = torch.as_tensor(aux["train_deviance"]).double()
+        dp = torch.as_tensor(plain_aux["train_deviance"]).double()
+        dev_rel = ((dk - dp).abs() / dp.abs()).max().item()
+        check(isinstance(aux["train_deviance"], np.ndarray) and dk.shape == (cfg.n_estimators,)
+              and bool(torch.isfinite(dk).all()), "a finite host deviance path")
+        check(float(dk[-1]) < float(dk[0]), "deviance falls over the fit")
+        check(dev_rel <= 1e-4, f"deviance paths agree at rtol 1e-4: {dev_rel}")
+        check(abs(auc - auc_plain) <= 0.005, f"AUC within 0.005 of the plain fit: {auc} {auc_plain}")
+        agree = forests_agree(params, plain, X17, yf, dev)
+        prof = profile_call(lambda: fit_timed(X17, yf, cfg, dev)[2])
+        runs.append({"rows": rows, "features": 17, "n_estimators": cfg.n_estimators,
+                     "splitter": cfg.splitter, "max_bins": binning.bin_features(X17, None).max_bins,
+                     "launches": run_launches, "cold_fit_s": cold,
+                     "warm_fit_s": statistics.median(warm), "warm_fit_runs_s": warm,
+                     "plain_fit_s": plain_s, "auc": auc, "auc_plain": auc_plain,
+                     "deviance_first_last": [float(dk[0]), float(dk[-1])],
+                     "deviance_max_rel_diff": dev_rel, **agree, "profile_warm_fit": prof})
+    emit({"phase": "fit_exact", "runs": runs})
+    return launches
+
+
 def serving_params(gbdt_params, X17: np.ndarray, seed: int) -> stacking.StackingParams:
     """Seeded members at the reference's shapes around the fitted forest:
     713 support vectors drawn from scaled cohort rows, gamma = 1/(17 var)
@@ -597,6 +773,123 @@ def phase_serve(gbdt_params, X17, seed, dev) -> dict:
     return out["launches"]
 
 
+def predict_params(gbdt_params, X17: np.ndarray, seed: int, dev) -> pipeline.PipelineParams:
+    """A full-pipeline model at the reference's shapes: the 1-NN imputer
+    fitted on ``make_cohort(1427, missing_rate=0.03)`` (all 64 variables,
+    donors with NaN, float64), the contract's 17 columns as the support mask,
+    and the serve phase's stacked ensemble (float32)."""
+    X64, _, _ = make_cohort(n=1427, seed=seed, missing_rate=0.03)
+    mask = torch.zeros(64, dtype=torch.bool, device=dev)
+    mask[selected_indices()] = True
+    return pipeline.PipelineParams(imputer=knn_impute.fit(X64, device=dev), support_mask=mask,
+                                   ensemble=serving_params(gbdt_params, X17, seed))
+
+
+def same_params(a, b) -> bool:
+    """Two parameter trees hold equal tensors (on any devices, NaN equal to
+    NaN) and statics."""
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(same_params(getattr(a, f.name), getattr(b, f.name))
+                                          for f in dataclasses.fields(a))
+    if isinstance(a, torch.Tensor):
+        a, b = a.cpu(), b.cpu()
+        return a.dtype == b.dtype and a.shape == b.shape and bool(
+            ((a == b) | ((a != a) & (b != b))).all())   # NaN donors equal NaN
+    return a == b
+
+
+def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
+    """The reference's ``predict`` route through a full-pipeline checkpoint:
+    save and load it (``persist/checkpoint.py``), ``cli predict --model`` on
+    the example patient in a subprocess on the card against the CPU port's
+    line, ``pipeline_predict_proba1_contract`` on ``[1, 17]`` and
+    ``[100000, 17]`` contract rows on the card against the CPU port at
+    (1e-5, 1e-8), and the imputer's donors card vs CPU (equal, or tied
+    within 1e-12 relative). No hand kernel lies on this path: the launch
+    counts must stay 0."""
+    import tempfile
+
+    from machine_learning_replications_tpu_torch import cli
+    from machine_learning_replications_tpu_torch.data.examples import patient_row
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+
+    cuda_histogram.reset_launch_counts()
+    params = predict_params(gbdt_params, X17, seed, dev)
+    out = {"phase": "predict", "hand_kernels": "none on this path (imputer distances and the "
+           "RBF kernel are torch.matmul; the rest are torch ops)"}
+    scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = f"{tmp}/model"
+        t0 = time.perf_counter()
+        version = checkpoint.save_model(path, params)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_model(path, device=dev)
+        load_s = time.perf_counter() - t0
+        check(same_params(params, loaded), "the checkpoint loads back equal tensors")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch",
+                               "predict", "--model", path], capture_output=True, text=True,
+                              timeout=300, cwd=Path(__file__).resolve().parent)
+        cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli predict on the card: {proc.stderr[-2000:]}")
+    params_cpu = convert.params_to(params, "cpu")
+    cpu_line = (f"Probability of progressive HF is: "
+                f"{100.0 * cli.predict_proba1(params_cpu, patient_row(), torch.device('cpu')):.2f} %")
+    card_line = proc.stdout.strip().splitlines()[-1]
+    check(card_line == cpu_line, f"cli predict on the card {card_line!r} vs the CPU port {cpu_line!r}")
+    out.update(checkpoint_version=version, save_s=save_s, load_s=load_s, cli_subprocess_s=cli_s,
+               cli_line=card_line, cli_line_cpu=cpu_line)
+
+    rng = np.random.default_rng(seed + 6)
+    block = pipeline.resolve_contract_block_fn(params)
+    out["batches"] = []
+    for rows, reps in ((1, 30), (100_000, 5)):
+        Xc = np.asarray(X17[rng.choice(X17.shape[0], rows, replace=False)], np.float64)
+        lat = []
+        for _ in range(reps + 2):
+            t0 = time.perf_counter()
+            p = pipeline.pipeline_predict_proba1_contract(params, Xc, device=dev)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        p_cpu = pipeline.pipeline_predict_proba1_contract(params_cpu, Xc, device="cpu").double()
+        cpu_s = time.perf_counter() - t0
+        p = p.cpu().double()
+        check(p.shape == (rows,) and bool(torch.isfinite(p).all()), "finite [n] probabilities")
+        err = (p - p_cpu).abs()
+        check(bool((err <= 1e-8 + 1e-5 * p_cpu.abs()).all()),
+              f"card equals CPU at (1e-5, 1e-8) for {rows} rows: max abs err {err.max()}")
+        # The donors: equal, or equally near under the CPU's distances.
+        x64 = pipeline.contract_rows_to_x64(params, Xc)
+        differ, worst = 0, 0.0
+        for s0 in range(0, rows, 8192):
+            xq = torch.as_tensor(x64[s0:s0 + 8192])
+            idx, ok = block.donors(params.imputer, xq.to(dev))
+            idx_c, ok_c = block.donors(params_cpu.imputer, xq)
+            idx, ok = idx.cpu(), ok.cpu()
+            check(torch.equal(ok, ok_c), "the same rows find a donor on the card and the CPU")
+            bad = (idx != idx_c) & ok_c
+            if bool(bad.any()):
+                D = block.distances(params_cpu.imputer, xq)
+                r = torch.nonzero(bad)[:, 0]
+                dk, dc = D[r, idx[bad]], D[r, idx_c[bad]]
+                gap = ((dk - dc).abs() / dc.abs().clamp_min(1e-300)).max().item()
+                check(gap <= 1e-12, f"donors differ without a tie: relative gap {gap}")
+                worst = max(worst, gap)
+                differ += int(bad.any(dim=1).sum())
+        out["batches"].append({"rows": rows, "latency_ms_median": statistics.median(lat[2:]) * 1e3,
+                               "latency_ms_runs": [t * 1e3 for t in lat[2:]],
+                               "cpu_port_s": cpu_s, "max_abs_err_vs_cpu": err.max().item(),
+                               "rows_with_other_donor": differ, "donor_tie_rel_gap": worst,
+                               "p1_mean": float(p.mean())})
+    out["launches"] = dict(cuda_histogram.LAUNCHES)
+    check(not any(out["launches"].values()), f"no hand kernel on the predict path: {out['launches']}")
+    emit(out)
+    return out["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000, help="cohort rows for the fits")
@@ -622,17 +915,18 @@ def main(argv=None) -> int:
     kern = {"stump_histograms": phase_kernels(binned, g, h, peaks, args.seed, dev),
             "node_histograms": phase_node_kernels(binned, g, h, peaks, args.seed, dev)}
     del binned, g, h
+    kern["stump_histograms"]["exact_shapes"] = phase_exact_kernels(peaks, args.seed, dev)
     torch.cuda.empty_cache()
 
     # The main path, one phase at a time: counts from 0 before, read after.
     gbdt_params, train_launches = phase_train(X17, yf, dev)
-    depth_launches = phase_train_depth(X17, yf, dev)
+    runs = [train_launches, phase_train_depth(X17, yf, dev)]
     torch.cuda.empty_cache()
-    sweep_launches = phase_sweep(args.sweep_rows, args.seed, dev)
-    serve_launches = phase_serve(gbdt_params, X17, args.seed, dev)
-    launches = {name: sum(run[name] for run in (train_launches, depth_launches,
-                                                 sweep_launches, serve_launches))
-                for name in kern}
+    runs.append(phase_fit_exact(args.seed, dev))
+    runs.append(phase_sweep(args.sweep_rows, args.seed, dev))
+    runs.append(phase_serve(gbdt_params, X17, args.seed, dev))
+    runs.append(phase_predict(gbdt_params, X17, args.seed, dev))
+    launches = {name: sum(run[name] for run in runs) for name in kern}
     for name, count in launches.items():
         check(count > 0, f"the main path launched the {name} kernel")
 
@@ -642,6 +936,9 @@ def main(argv=None) -> int:
         "replaces": TPU_KERNELS[name], "launches": launches[name],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        **({"exact_shapes": [{key: e[key] for key in (
+            "n", "F", "B", "bins", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for e in k["exact_shapes"]]} if "exact_shapes" in k else {}),
     } for name, k in kern.items()]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

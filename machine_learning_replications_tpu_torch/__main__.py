@@ -1,0 +1,8 @@
+"""``python -m machine_learning_replications_tpu_torch`` — the port's CLI (``cli.py``)."""
+
+import sys
+
+from machine_learning_replications_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

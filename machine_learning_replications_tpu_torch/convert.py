@@ -21,7 +21,9 @@ import numpy as np
 import torch
 
 from machine_learning_replications_tpu_torch.device import resolve_device
+from machine_learning_replications_tpu_torch.models.knn_impute import KNNImputerParams
 from machine_learning_replications_tpu_torch.models.linear import LinearParams
+from machine_learning_replications_tpu_torch.models.pipeline import PipelineParams
 from machine_learning_replications_tpu_torch.models.scaler import ScalerParams
 from machine_learning_replications_tpu_torch.models.stacking import StackingParams
 from machine_learning_replications_tpu_torch.models.svm import SVCParams
@@ -86,20 +88,41 @@ def _quality(src: Any, device: torch.device, dtype: torch.dtype) -> Any:
     return _tensor(src, device, dtype)
 
 
+def _optional(src: Any, name: str) -> Any:
+    return src.get(name) if isinstance(src, Mapping) else getattr(src, name, None)
+
+
 def stacking_params_from_arrays(
     src: Any, *, device=None, dtype: torch.dtype = torch.float64
 ) -> StackingParams:
     dev = resolve_device(device)
-    quality = src.get("quality") if isinstance(src, Mapping) else getattr(
-        src, "quality", None
-    )
     return StackingParams(
         scaler=scaler_params_from_arrays(_field(src, "scaler"), device=dev, dtype=dtype),
         svc=svc_params_from_arrays(_field(src, "svc"), device=dev, dtype=dtype),
         gbdt=tree_params_from_arrays(_field(src, "gbdt"), device=dev, dtype=dtype),
         logreg=linear_params_from_arrays(_field(src, "logreg"), device=dev, dtype=dtype),
         meta=linear_params_from_arrays(_field(src, "meta"), device=dev, dtype=dtype),
-        quality=_quality(quality, dev, dtype),
+        quality=_quality(_optional(src, "quality"), dev, dtype),
+    )
+
+
+def knn_imputer_params_from_arrays(
+    src: Any, *, device=None, dtype: torch.dtype = torch.float64
+) -> KNNImputerParams:
+    return _convert(KNNImputerParams, src, device, dtype)
+
+
+def pipeline_params_from_arrays(
+    src: Any, *, device=None, dtype: torch.dtype = torch.float64
+) -> PipelineParams:
+    """The full pipeline: imputer, the boolean support mask (kept boolean),
+    the stacked ensemble and the optional quality profile."""
+    dev = resolve_device(device)
+    return PipelineParams(
+        imputer=knn_imputer_params_from_arrays(_field(src, "imputer"), device=dev, dtype=dtype),
+        support_mask=_tensor(_field(src, "support_mask"), dev, dtype),
+        ensemble=stacking_params_from_arrays(_field(src, "ensemble"), device=dev, dtype=dtype),
+        quality=_quality(_optional(src, "quality"), dev, dtype),
     )
 
 

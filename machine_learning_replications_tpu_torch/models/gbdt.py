@@ -1,12 +1,18 @@
 """Gradient-boosted trees — training.
 
-Port of the JAX package's ``models/gbdt.py`` for two regimes:
+Port of the JAX package's ``models/gbdt.py``. ``fit`` routes as the JAX
+``fit`` does, over three engines:
 
-  * the fused depth-1 'hist' fit (``splitter='hist'``, ``max_depth=1``, at
-    least ``DEVICE_BINNING_MIN_ROWS`` rows): quantile binning on the device,
-    then every boosting stage over the loop-invariant ``[n, F]`` bin matrix,
-    each stage's split statistics from one ``ops.histogram.stump_histograms``
-    pass — the hand-written CUDA kernel on the card;
+  * depth 1 (``_fit_stumps``): every boosting stage over the loop-invariant
+    ``[n, F]`` bin matrix, each stage's split statistics from one
+    ``ops.histogram.stump_histograms`` pass — the hand-written CUDA stump
+    kernel on the card — and a cumulative sum over bins. The bins come from
+    device quantile binning on the fused 'hist' path (at least
+    ``DEVICE_BINNING_MIN_ROWS`` rows, u8 ids), else from host binning:
+    'exact' takes every unique-value midpoint (up to n + 1 bins, int32 ids),
+    'hist' below the row gate its quantile-capped midpoints;
+  * the host single-stump engine ``_fit_stump_host`` (``n_estimators == 1``
+    at the fused path's shape with host inputs), host numpy only;
   * the level-wise grower (``max_depth >= 2`` in ``fit``, every depth in
     ``fit_folds``): each tree is built level by level from per-(node,
     feature, bin) histograms (``resolve_hist_fn``: the hand-written CUDA node
@@ -27,14 +33,14 @@ NaN flag is read once, after the loop. The grower carries a leading fit axis
 folds share one histogram launch — where the JAX package ``vmap``s the folds
 and so keeps its Pallas kernel off them.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the sorted-layout ``_fit_stumps`` path (``splitter='exact'`` at
-depth 1, and 'hist' depth 1 below ``DEVICE_BINNING_MIN_ROWS``) and the host
-single-stump engine ``_fit_stump_host`` (A-next-2); ``fit_resumable``.
+Not ported yet: ``fit_resumable`` (it waits for the training solvers,
+ROADMAP item 6).
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -168,46 +174,50 @@ def fit(
     """Fit the boosted ensemble on ``device``; returns ``(params, aux)`` with
     the deviance path ``aux['train_deviance']``: a device tensor on the fused
     depth-1 path (fetching it would sync inside the fit), a host numpy array
-    on the level-wise path (``max_depth >= 2``), as in the JAX package.
+    on every other path, as in the JAX package.
 
-    The fit runs in ``float_dtype(X)``. Depth-1 fits off the fused path
-    raise ``NotImplementedError`` naming ROADMAP item A-next-2.
+    Four regimes, routed as the JAX ``fit`` routes them:
+
+      * ``n_estimators == 1`` on the fused path's shape with host numpy
+        inputs: ``_fit_stump_host`` (host numpy, no device work);
+      * 'hist' at depth 1 and at least ``DEVICE_BINNING_MIN_ROWS`` rows:
+        ``_fit_fused`` (device quantile binning, then the stage loop);
+      * any other depth-1 fit ('exact', or 'hist' below the row gate): host
+        binning, then the same stage loop over the host bins
+        (``_fit_stumps``) — under 'exact' every unique-value midpoint is a
+        candidate, so the bins go to the kernel as int32 above 256;
+      * ``max_depth >= 2``: the level-wise grower (``_fit_binned``).
+
+    The fit runs in ``float_dtype(X)``.
     """
     dev = resolve_device(device)
     backend = resolve_backend(cfg, dev)  # validate eagerly
     bin_budget(cfg)                      # validates the splitter
     n = X.shape[0]
-    if cfg.max_depth == 1:
-        if (cfg.n_estimators == 1 and uses_fused_hist1(cfg, n)
-                and isinstance(X, np.ndarray) and isinstance(y, np.ndarray)):
-            raise NotImplementedError(
-                "GBDT regime not ported yet — the host single-stump engine "
-                "_fit_stump_host (ROADMAP A-next-2)"
-            )
-        if not uses_fused_hist1(cfg, n):
-            why = (f"{n} rows < DEVICE_BINNING_MIN_ROWS" if cfg.splitter == "hist"
-                   else f"splitter {cfg.splitter!r}")
-            raise NotImplementedError(
-                f"GBDT regime not ported yet — {why}: the sorted-layout "
-                "_fit_stumps path (ROADMAP A-next-2)"
-            )
+    if (cfg.max_depth == 1 and cfg.n_estimators == 1 and uses_fused_hist1(cfg, n)
+            and isinstance(X, np.ndarray) and isinstance(y, np.ndarray)):
+        return _fit_stump_host(X, y, cfg, dev)
+    if uses_fused_hist1(cfg, n):
         return _fit_fused(X, y, cfg, backend, dev)
     Xt = torch.as_tensor(X)
     dtype = float_dtype(Xt)
     yj = torch.as_tensor(y, device=dev)
     bins = default_bins(Xt, cfg, dev)
-    feature, threshold, value, is_split, deviance = _fit_binned(
-        _device_bins(bins.binned, bins.max_bins, dev),
-        torch.as_tensor(bins.thresholds, dtype=dtype, device=dev),
-        yj,
+    binned = _device_bins(bins.binned, bins.max_bins, dev)
+    thresholds = torch.as_tensor(bins.thresholds, dtype=dtype, device=dev)
+    stages = dict(
         n_stages=cfg.n_estimators,
-        depth=cfg.max_depth,
-        max_bins=bins.max_bins,
         learning_rate=cfg.learning_rate,
         min_samples_split=cfg.min_samples_split,
         min_samples_leaf=cfg.min_samples_leaf,
         backend=backend,
     )
+    if cfg.max_depth == 1:
+        feature, threshold, value, is_split, deviance, _ = _fit_stumps(
+            binned, thresholds, yj.to(dtype), **stages)
+    else:
+        feature, threshold, value, is_split, deviance = _fit_binned(
+            binned, thresholds, yj, depth=cfg.max_depth, max_bins=bins.max_bins, **stages)
     params = forest_to_params(
         feature, threshold, value, is_split,
         init_raw=_prior_log_odds(yj.to(dtype)), learning_rate=cfg.learning_rate,
@@ -217,19 +227,23 @@ def fit(
 
 
 def _fit_fused(X, y, cfg: GBDTConfig, backend: str, dev: torch.device):
-    """The fused depth-1 'hist' regime of ``fit``."""
+    """The fused depth-1 'hist' regime of ``fit``: quantile binning on the
+    device (u8 ids up to 256 bins), then ``_fit_stumps``. The binning NaN
+    flag is read once, after every stage is queued."""
     Xj = torch.as_tensor(X, device=dev)
-    yj = torch.as_tensor(y, device=dev)
-    feature, threshold, value, is_split, deviance, f0, nan_flag = _fit_hist1_fused(
-        Xj, yj,
-        n_bins=cfg.n_bins,
+    binned, mids, nan_flag = binning.device_binning_core(Xj, cfg.n_bins)
+    if cfg.n_bins <= 256:
+        # the only O(n·F) array each stage reads — keep it one byte wide
+        binned = binned.to(torch.uint8)
+    thresholds = mids.T.contiguous()                         # [F, B-1]
+    feature, threshold, value, is_split, deviance, f0 = _fit_stumps(
+        binned, thresholds, torch.as_tensor(y, device=dev).to(thresholds.dtype),
         n_stages=cfg.n_estimators,
         learning_rate=cfg.learning_rate,
         min_samples_split=cfg.min_samples_split,
         min_samples_leaf=cfg.min_samples_leaf,
         backend=backend,
     )
-    # One sync for the whole fit, after every stage is queued.
     if bool(nan_flag):
         raise ValueError("input contains NaN; impute before binning")
     params = forest_to_params(
@@ -246,44 +260,47 @@ def _device_bins(binned, max_bins: int, dev: torch.device) -> torch.Tensor:
     return b.to(torch.uint8) if max_bins <= 256 else b
 
 
-def _fit_hist1_fused(
-    Xj: torch.Tensor,
-    yj: torch.Tensor,
+def _left_counts(binned: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """``[F, B-1]`` int64: the rows with bin ≤ b, per feature — loop-invariant,
+    one integer ``bincount`` per feature (exact on any device)."""
+    counts = torch.stack([torch.bincount(binned[:, f].long(), minlength=n_bins)
+                          for f in range(binned.shape[1])])
+    return torch.cumsum(counts, dim=1)[:, :-1]
+
+
+def _fit_stumps(
+    binned: torch.Tensor,      # [n, F] integer bin ids (uint8, or int32 past 256 bins)
+    thresholds: torch.Tensor,  # [F, B-1], +inf past a feature's last boundary
+    ys: torch.Tensor,          # [n] labels in the working dtype
     *,
-    n_bins: int,
     n_stages: int,
     learning_rate: float,
     min_samples_split: int,
     min_samples_leaf: int,
     backend: str,
 ):
-    """Quantile binning → all boosting stages over unsorted histograms.
+    """All stages of a depth-1 fit over the loop-invariant bin matrix →
+    ``(feature, threshold, value, is_split, deviance, f0)``, the forest in
+    ``[n_stages, 3]`` heap layout, all on ``binned``'s device.
 
-    Returns ``(feature, threshold, value, is_split, deviance, f0, nan_flag)``
-    with the forest in ``[n_stages, 3]`` heap layout, all on the device.
+    The one stage loop of both depth-1 device regimes: the fused fit (device
+    quantile bins, u8) and the host-binned fit (the JAX package's
+    ``_fit_stumps``: 'exact' unique-value midpoints, or 'hist' below the
+    device-binning gate). The JAX ``_fit_stumps`` reads boundary sums off a
+    replicated sorted ``[F, F, n]`` layout because the TPU serialises
+    scatters and gathers; here each stage's split statistics come from one
+    ``histogram.stump_histograms`` pass (on the card, the hand-written stump
+    kernel, at B = n + 1 bins under 'exact' on a continuous column) and a
+    cumulative sum over bins — the same sums, added in another order.
+    No host sync: split columns are picked with ``index_select`` on device
+    indices and per-stage results go into preallocated tensors.
     """
-    binned, mids, nan_flag = binning.device_binning_core(Xj, n_bins)
-    if n_bins <= 256:
-        # the only O(n·F) array each stage reads — keep it one byte wide
-        binned = binned.to(torch.uint8)
-    thresholds = mids.T.contiguous()                         # [F, B-1]
+    n, F = binned.shape
+    n_bins = thresholds.shape[1] + 1
     dtype = thresholds.dtype
-    n, F = Xj.shape
-    dev = Xj.device
-    # Loop-invariant left-of-boundary counts (#rows with bin ≤ b), one
-    # row-chunked compare+sum pass as in the JAX fit.
-    boundaries = torch.arange(n_bins - 1, dtype=torch.int32, device=dev)
-    mapped = binning.chunked_row_reduce(
-        binned.to(torch.int32),
-        lambda bc: torch.sum(
-            bc[:, None, :] <= boundaries[None, :, None], dim=0, dtype=torch.int32
-        )[None],
-    )
-    left_count = torch.sum(mapped, dim=0).T                  # [F, B-1]
-
-    ys = yj.to(dtype)
+    dev = binned.device
     f0 = _prior_log_odds(ys)
-    CL = left_count.to(dtype)[None]                          # [1, F, B-1]
+    CL = _left_counts(binned, n_bins).to(dtype)[None]        # [1, F, B-1]
     CT = torch.tensor([n], dtype=dtype, device=dev)
     Bm1 = n_bins - 1
 
@@ -334,7 +351,138 @@ def _fit_hist1_fused(
                              torch.where(do, v_r, zero)])
         splits[t] = torch.cat([do, no_split])
 
-    return feats, thrs, vals, splits, devs, f0, nan_flag
+    return feats, thrs, vals, splits, devs, f0
+
+
+# Host single-stump engine: quantile candidates come from a systematic
+# subsample above this many rows (the JAX package's constant).
+_STUMP_CANDIDATE_SAMPLE = 131_072
+
+
+def _fit_stump_host(
+    X: np.ndarray, y: np.ndarray, cfg: GBDTConfig, dev: torch.device
+) -> tuple[TreeEnsembleParams, dict[str, Any]]:
+    """Single-stump fit in host numpy, threaded over columns (the JAX
+    package's ``_fit_stump_host``, copied in its semantics).
+
+    The one-shot regime (``n_estimators == 1`` at device-binning scale, host
+    inputs). At stage 0 the raw score is the constant prior ``f0``, so
+    ``p = mean(y)``, the hessian ``p(1-p)`` is one scalar, and the split
+    search needs only a per-feature label histogram and count histogram.
+    Candidates follow ``binning.device_binning_core`` (empirical-quantile
+    candidates, the same midpoint guard, bin = ``#{mids < v}``) with the
+    JAX engine's two deviations: above ``_STUMP_CANDIDATE_SAMPLE`` rows the
+    candidates come from a systematic row subsample, and duplicate midpoints
+    are deduplicated (the same partitions). Selection, leaf values and the
+    deviance use the friedman proxy, the Newton guard and the binomial
+    deviance, accumulated in float64. The forest lands on ``dev`` in the
+    fit's working dtype (``float_dtype(X)``); ``train_deviance`` is a host
+    array.
+    """
+    n, F = X.shape
+    B = cfg.n_bins
+    if np.isnan(X).any():
+        raise ValueError("input contains NaN; impute before binning")
+    fdt = np.float64 if X.dtype == np.float64 else np.float32   # float_dtype(X)
+    y64 = np.asarray(y, np.float64)
+    p1 = float(y64.mean())
+    f0 = float(np.log(p1 / (1.0 - p1)))
+    h_const = p1 * (1.0 - p1)
+    binary_y = histogram.is_binary_labels(np.asarray(y))
+    y_bool = np.asarray(y) > 0.5 if binary_y else None
+    # round-based: keeps the sample near the documented target
+    step = max(1, round(n / _STUMP_CANDIDATE_SAMPLE))
+
+    def col_stats(f):
+        col = X[:, f]
+        src = col[::step] if step > 1 else col
+        m = src.shape[0]
+        q_idx = np.round(np.linspace(0.0, 1.0, B) * (m - 1)).astype(np.int64)
+        cs = np.partition(src, q_idx)      # kth element == full sort[q_idx]
+        u = cs[q_idx]
+        mids = ((u[:-1] + u[1:]) / 2.0).astype(col.dtype)
+        # sklearn BestSplitter guard, as in device_binning_core
+        mids = np.where(mids == u[1:], u[:-1], mids)
+        mids = np.unique(mids)             # dedupe: same partitions, less work
+        b = np.searchsorted(mids, col, side="left")    # == #{mids < v}
+        cnt = np.bincount(b, minlength=B).astype(np.float64)
+        if binary_y:
+            sy = np.bincount(b[y_bool], minlength=B).astype(np.float64)
+        else:
+            sy = np.bincount(b, weights=y64, minlength=B)
+        thr = np.full(B - 1, np.inf)
+        thr[: mids.shape[0]] = mids.astype(np.float64)
+        return thr, cnt, sy
+
+    workers = max(1, min(F, os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as ex:
+        per_col = list(ex.map(col_stats, range(F)))
+    thresholds = np.stack([r[0] for r in per_col])         # [F, B-1]
+    CNT = np.stack([r[1] for r in per_col])                # [F, B]
+    SY = np.stack([r[2] for r in per_col])                 # [F, B]
+
+    # select_splits' math, float64 host edition (K = 1)
+    hist_g = SY - p1 * CNT
+    GL = np.cumsum(hist_g, axis=1)[:, :-1]                 # [F, B-1]
+    CL = np.cumsum(CNT, axis=1)[:, :-1]
+    SYL = np.cumsum(SY, axis=1)[:, :-1]
+    GT = float(hist_g[0].sum())
+    HT = n * h_const
+    CR = n - CL
+    GR = GT - GL
+    valid = (
+        (CL >= cfg.min_samples_leaf)
+        & (CR >= cfg.min_samples_leaf)
+        & np.isfinite(thresholds)
+    )
+    diff = GL / np.maximum(CL, 1) - GR / np.maximum(CR, 1)
+    proxy = np.where(valid, diff * diff * CL * CR, -np.inf)
+    best = int(np.argmax(proxy))                           # flat (f, b) order
+    Bm1 = B - 1
+    fstar, bstar = best // Bm1, best % Bm1
+    best_gain = proxy[fstar, bstar]
+
+    sum_g2 = float(np.dot(y64 - p1, y64 - p1))
+    impurity = max(sum_g2 / max(n, 1) - (GT / max(n, 1)) ** 2, 0.0)
+    do = bool(
+        (n >= cfg.min_samples_split)
+        and (impurity > histogram.IMPURITY_EPS)
+        and np.isfinite(best_gain)
+    )
+
+    def newton(num, den):
+        return 0.0 if abs(den) < histogram.NEWTON_DEN_GUARD else num / den
+
+    num_l, den_l = GL[fstar, bstar], h_const * CL[fstar, bstar]
+    v_root = newton(GT, HT)
+    v_l = newton(num_l, den_l)
+    v_r = newton(GT - num_l, HT - den_l)
+
+    # binomial deviance of the updated scores — raw takes only two values
+    # (or one, unsplit), so the mean reduces to histogram aggregates
+    lr = cfg.learning_rate
+    if do:
+        n_l, sum_y_l = CL[fstar, bstar], SYL[fstar, bstar]
+        raw_l, raw_r = f0 + lr * v_l, f0 + lr * v_r
+        ll = (
+            sum_y_l * raw_l + (y64.sum() - sum_y_l) * raw_r
+            - n_l * np.logaddexp(0.0, raw_l)
+            - (n - n_l) * np.logaddexp(0.0, raw_r)
+        )
+    else:
+        raw0 = f0 + lr * v_root
+        ll = y64.sum() * raw0 - n * np.logaddexp(0.0, raw0)
+    dev_ = -2.0 * ll / n
+
+    tensor = lambda a: torch.as_tensor(np.asarray(a, fdt), device=dev)  # noqa: E731
+    params = forest_to_params(
+        torch.tensor([[fstar if do else 0, 0, 0]], dtype=torch.int32, device=dev),
+        tensor([[thresholds[fstar, bstar] if do else np.inf, np.inf, np.inf]]),
+        tensor([[0.0, v_l, v_r] if do else [v_root, 0.0, 0.0]]),
+        torch.tensor([[do, False, False]], device=dev),
+        init_raw=tensor(f0), learning_rate=lr, max_depth=1,
+    )
+    return params, {"train_deviance": np.asarray([dev_], fdt)}
 
 
 def fit_folds(

@@ -147,10 +147,9 @@ def refit_best(
     device=None,
 ) -> tuple[tree.TreeEnsembleParams, GBDTConfig]:
     """Refit the winning cell on the full data (``GridSearchCV(refit=True)``)
-    through ``gbdt.fit``. It reaches whatever ``fit`` supports: a depth-1
-    winner off the fused path (the default 'exact' splitter, or 'hist' below
-    ``gbdt.DEVICE_BINNING_MIN_ROWS`` rows) raises ``fit``'s
-    ``NotImplementedError`` (ROADMAP A-next-2); ``mesh=`` raises too
+    through ``gbdt.fit``, every depth and splitter included: a depth-1
+    winner under the default 'exact' splitter refits on the stump kernel
+    with every unique-value midpoint as a candidate. ``mesh=`` raises
     (ROADMAP item 7)."""
     if mesh is not None:
         raise NotImplementedError(

@@ -7,7 +7,9 @@ entry modes that differ only in how a row's statistics are formed:
 
   * ``stats_histograms_cuda``: the general entry, ``[n, S]`` values and
     per-row segment offsets as given;
-  * ``stump_histograms_cuda``: K=1, S=2, the fused depth-1 fit's pass; the
+  * ``stump_histograms_cuda``: K=1, S=2, the depth-1 fits' pass (u8 bins
+    on the fused fit; int32 bins with up to n + 1 bins per feature on the
+    exact fit, where ``tile_plan`` cuts a feature's cells into ranges); the
     kernel reads ``grad`` and ``hess`` as two columns;
   * ``node_histograms_cuda``: S=4 per (node, feature, bin), the level-wise
     grower's pass; the kernel reads ``node_local``, ``grad`` and ``hess``,

@@ -3,8 +3,8 @@
 Port of the parts of the JAX package's ``ops/histogram.py`` that the
 GBDT fits run: the guarded Newton leaf value, friedman-MSE split selection
 (``select_splits``, and ``best_splits`` over per-node histograms), and the
-per-stage ``[2, F, B]`` gradient/hessian histogram of the fused depth-1 fit
-with its ``backend`` switch.
+per-stage ``[2, F, B]`` gradient/hessian histogram of the depth-1 fits with
+its ``backend`` switch.
 
 The plain PyTorch versions of the histogram kernel live here too:
 
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # sklearn's impurity-is-zero leaf test: impurity <= EPSILON (np.finfo(double).eps)
@@ -38,6 +39,12 @@ IMPURITY_EPS = 2.220446049250313e-16
 NEWTON_DEN_GUARD = 1e-150
 
 BACKENDS = ("auto", "matmul", "pallas", "xla")
+
+
+def is_binary_labels(y: np.ndarray) -> bool:
+    """Every label exactly 0 or 1 (host arrays; the host single-stump
+    engine's label-histogram shortcut)."""
+    return bool(np.all((y == 0) | (y == 1)))
 
 
 def newton_leaf_value(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -158,7 +165,7 @@ def stump_histograms(
     max_bins: int,
     backend: str = "auto",
 ) -> torch.Tensor:
-    """The per-stage statistics pass of the fused depth-1 fit → ``[2, F, B]``:
+    """The per-stage statistics pass of the depth-1 fits → ``[2, F, B]``:
     ``out[0, f, b] = Σ_i grad[i]·[binned[i, f] == b]`` and likewise for hess.
 
     ``backend`` keeps ``GBDTConfig.histogram_backend``'s values. 'auto' and

@@ -1,0 +1,260 @@
+"""The port's model checkpoints: one tensor file, a JSON sidecar, an
+integrity manifest, atomic publish and last-known-good rollback.
+
+The semantics are those of the JAX package's ``persist/orbax_io``
+(``save_model``, ``load_model``, ``load_model_versioned``,
+``checkpoint_version``) and ``resilience/lastgood``; the files are the
+port's own. A checkpoint directory holds:
+
+  * ``tensors.npz`` — every tensor of the parameter tree, keyed by its
+    dotted field path (``ensemble.svc.support_vectors``), written with
+    ``numpy.savez`` and read with ``allow_pickle=False``: loading never runs
+    code from the directory;
+  * ``model.json`` — the sidecar: ``{"format": 1, "family": ..., "root":
+    ...}``, the family (``PipelineParams``, ``StackingParams`` or
+    ``TreeEnsembleParams``) and the field tree, each dataclass by class name
+    (resolved against a fixed registry), each tensor by key, shape and
+    dtype, each static field (``max_depth``) by value;
+  * ``integrity.json`` — sha256 and size of every other file, the
+    checkpoint's monotonic ``version`` (one past the largest of the primary
+    and its last-known-good) and the publish time.
+
+Publish: the whole tree is written into ``<path>.tmp.<pid>`` beside the
+target, the manifest over it; a checkpoint already at ``<path>`` is rotated
+to ``<path>.lastgood`` (only if its files still match their manifest sizes;
+a rotten primary is dropped instead, so it never replaces a good
+last-known-good); then one ``os.rename`` makes the new tree visible. A
+crash leaves the old checkpoint, or in the window after the rotation the
+last-known-good, which ``load_model`` falls back to. Load: the manifest is
+checked (every file's size and sha256) before any tensor is read; a primary
+that fails to load falls back to ``<path>.lastgood`` with a line on stderr.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import hashlib
+import json
+import os
+import shutil
+import sys
+from typing import Any
+
+import numpy as np
+import torch
+
+from machine_learning_replications_tpu_torch.device import resolve_device
+from machine_learning_replications_tpu_torch.models import (
+    knn_impute, linear, pipeline, scaler, stacking, svm, tree,
+)
+from machine_learning_replications_tpu_torch.persist.atomicio import fsync_json_dump
+
+FORMAT = 1
+TENSORS_FILE = "tensors.npz"
+SIDECAR_FILE = "model.json"
+INTEGRITY_FILE = "integrity.json"
+LASTGOOD_SUFFIX = ".lastgood"
+FAMILIES = ("PipelineParams", "StackingParams", "TreeEnsembleParams")
+_CLASSES = {c.__name__: c for c in (
+    pipeline.PipelineParams, stacking.StackingParams, scaler.ScalerParams, svm.SVCParams,
+    tree.TreeEnsembleParams, linear.LinearParams, knn_impute.KNNImputerParams,
+)}
+
+
+class CheckpointIntegrityError(RuntimeError):
+    """The checkpoint's files do not match its integrity manifest."""
+
+
+def lastgood_path(path: "str | os.PathLike") -> str:
+    """The sibling directory holding a checkpoint's previous version."""
+    return os.path.abspath(os.fspath(path)).rstrip(os.sep) + LASTGOOD_SUFFIX
+
+
+def checkpoint_version(path: "str | os.PathLike") -> int | None:
+    """The version stamped into the checkpoint's manifest, or None (no
+    checkpoint, or an unreadable manifest). Never raises."""
+    try:
+        with open(os.path.join(os.fspath(path), INTEGRITY_FILE)) as f:
+            v = json.load(f).get("version")
+        return int(v) if v is not None else None
+    except (OSError, ValueError, TypeError, AttributeError):
+        return None
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _payload_files(path: str) -> list[str]:
+    out = []
+    for root, _dirs, names in os.walk(path):
+        for name in names:
+            rel = os.path.relpath(os.path.join(root, name), path)
+            if rel != INTEGRITY_FILE:
+                out.append(rel)
+    return sorted(out)
+
+
+def verify_checkpoint(path: "str | os.PathLike", *, deep: bool = True) -> None:
+    """Check every file against the manifest: present, of its size and
+    (``deep``) of its sha256. Raises ``CheckpointIntegrityError``; a
+    checkpoint without a manifest is refused too (the format always has
+    one)."""
+    path = os.path.abspath(os.fspath(path))
+    try:
+        with open(os.path.join(path, INTEGRITY_FILE)) as f:
+            files = json.load(f)["files"]
+    except (OSError, ValueError, KeyError, TypeError) as exc:
+        raise CheckpointIntegrityError(
+            f"no readable integrity manifest in {path!r}: {type(exc).__name__}: {exc}"
+        ) from exc
+    for rel, spec in sorted(files.items()):
+        fp = os.path.join(path, rel)
+        if not os.path.isfile(fp):
+            raise CheckpointIntegrityError(f"checkpoint {path!r} is missing {rel!r}")
+        size = os.path.getsize(fp)
+        if size != spec["bytes"]:
+            raise CheckpointIntegrityError(
+                f"checkpoint file {rel!r} is {size} bytes, manifest says {spec['bytes']}")
+        if deep and _sha256(fp) != spec["sha256"]:
+            raise CheckpointIntegrityError(f"checkpoint file {rel!r} content hash mismatch")
+
+
+def _encode(node: Any, arrays: dict[str, np.ndarray], key: str) -> Any:
+    """Parameter tree → JSON sidecar node; tensors go into ``arrays``."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        name = type(node).__name__
+        if name not in _CLASSES:
+            raise TypeError(f"cannot checkpoint {name}: not a parameter class of the port")
+        return {"cls": name, "fields": {
+            f.name: _encode(getattr(node, f.name), arrays, f"{key}.{f.name}".lstrip("."))
+            for f in dataclasses.fields(node)}}
+    if isinstance(node, (torch.Tensor, np.ndarray)):
+        a = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else node
+        arrays[key] = a
+        return {"array": {"key": key, "shape": list(a.shape), "dtype": str(a.dtype)}}
+    if isinstance(node, dict):
+        if not all(isinstance(k, str) for k in node):
+            raise TypeError("cannot checkpoint a dict with non-string keys")
+        return {"mapping": {k: _encode(v, arrays, f"{key}.{k}") for k, v in node.items()}}
+    if isinstance(node, (tuple, list)):
+        return {"seq": [_encode(v, arrays, f"{key}.{i}") for i, v in enumerate(node)],
+                "tuple": isinstance(node, tuple)}
+    if node is None or isinstance(node, (bool, int, float, str)):
+        return {"static": node}
+    raise TypeError(f"cannot checkpoint a {type(node).__name__} field")
+
+
+def _decode(node: dict, arrays, dev: torch.device) -> Any:
+    """Sidecar node → parameter tree with tensors on ``dev``."""
+    if "cls" in node:
+        cls = _CLASSES[node["cls"]]
+        return cls(**{k: _decode(v, arrays, dev) for k, v in node["fields"].items()})
+    if "array" in node:
+        spec = node["array"]
+        a = arrays[spec["key"]]
+        if list(a.shape) != spec["shape"] or str(a.dtype) != spec["dtype"]:
+            raise CheckpointIntegrityError(
+                f"tensor {spec['key']!r} is {a.dtype}{list(a.shape)}, the sidecar says "
+                f"{spec['dtype']}{spec['shape']}")
+        return torch.as_tensor(a, device=dev)
+    if "mapping" in node:
+        return {k: _decode(v, arrays, dev) for k, v in node["mapping"].items()}
+    if "seq" in node:
+        items = [_decode(v, arrays, dev) for v in node["seq"]]
+        return tuple(items) if node.get("tuple", True) else items
+    if "static" in node:
+        return node["static"]
+    raise ValueError(f"malformed sidecar node: {sorted(node)}")
+
+
+def save_model(path: "str | os.PathLike", params: Any) -> int:
+    """Publish ``params`` (a ``PipelineParams``, ``StackingParams`` or
+    ``TreeEnsembleParams``) at ``path`` atomically; a checkpoint already
+    there becomes the last-known-good. Returns the new version."""
+    path = os.path.abspath(os.fspath(path))
+    family = type(params).__name__
+    if family not in FAMILIES:
+        raise TypeError(f"a checkpoint holds one of {FAMILIES}, not {family}")
+    prev = [v for v in (checkpoint_version(path), checkpoint_version(lastgood_path(path)))
+            if v is not None]
+    version = (max(prev) if prev else 0) + 1
+    tmp = f"{path}.tmp.{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        os.makedirs(tmp)
+        arrays: dict[str, np.ndarray] = {}
+        root = _encode(params, arrays, "")
+        with open(os.path.join(tmp, TENSORS_FILE), "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        fsync_json_dump(os.path.join(tmp, SIDECAR_FILE),
+                        {"format": FORMAT, "family": family, "root": root})
+        files = {rel: {"sha256": _sha256(os.path.join(tmp, rel)),
+                       "bytes": os.path.getsize(os.path.join(tmp, rel))}
+                 for rel in _payload_files(tmp)}
+        fsync_json_dump(os.path.join(tmp, INTEGRITY_FILE), {
+            "format": FORMAT, "files": files, "version": version,
+            "published": datetime.datetime.now(datetime.timezone.utc).isoformat(),
+        })
+        if os.path.isdir(path):
+            try:
+                verify_checkpoint(path, deep=False)
+            except CheckpointIntegrityError:
+                shutil.rmtree(path)             # never rotate a rotten primary
+            else:
+                shutil.rmtree(lastgood_path(path), ignore_errors=True)
+                os.rename(path, lastgood_path(path))
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return version
+
+
+def _load_at(path: str, dev: torch.device) -> Any:
+    verify_checkpoint(path)
+    with open(os.path.join(path, SIDECAR_FILE)) as f:
+        sidecar = json.load(f)
+    if sidecar.get("format") != FORMAT or sidecar.get("family") not in FAMILIES:
+        raise ValueError(f"unknown checkpoint format or family in {path!r}: "
+                         f"{sidecar.get('format')!r}, {sidecar.get('family')!r}")
+    with np.load(os.path.join(path, TENSORS_FILE), allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    params = _decode(sidecar["root"], arrays, dev)
+    if type(params).__name__ != sidecar["family"]:
+        raise ValueError(f"sidecar family {sidecar['family']!r} does not match its root")
+    return params
+
+
+def load_model_versioned(path: "str | os.PathLike", *, device=None) -> tuple[Any, dict]:
+    """``(params, info)`` with ``info = {"path", "version", "rolled_back"}``:
+    which directory actually loaded. A primary that fails to load (integrity,
+    missing or torn files, a bad sidecar) falls back to its last-known-good,
+    loudly (a line on stderr, ``rolled_back`` True); without one the error
+    propagates."""
+    dev = resolve_device(device)
+    path = os.path.abspath(os.fspath(path))
+    try:
+        params, used = _load_at(path, dev), path
+    except Exception as exc:
+        lg = lastgood_path(path)
+        if not os.path.isdir(lg):
+            raise
+        params, used = _load_at(lg, dev), lg   # a bad last-known-good raises here
+        print(f"checkpoint {path!r} failed to load ({type(exc).__name__}: {exc}); "
+              f"rolled back to last-known-good {lg!r}", file=sys.stderr)
+    return params, {"path": used, "version": checkpoint_version(used),
+                    "rolled_back": used != path}
+
+
+def load_model(path: "str | os.PathLike", *, device=None) -> Any:
+    """The parameters of the checkpoint at ``path`` on ``device`` (default:
+    the card), with ``load_model_versioned``'s fallback."""
+    return load_model_versioned(path, device=device)[0]

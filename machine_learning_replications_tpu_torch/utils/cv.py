@@ -1,7 +1,9 @@
-"""Deterministic replication of sklearn's unshuffled stratified CV folds.
+"""Deterministic replication of sklearn's unshuffled stratified CV folds,
+and the stratified subsample the imputer's donor cap draws.
 
-Copy of ``stratified_kfold_test_masks`` from the JAX package's
-``utils/cv.py`` (numpy only). ``StratifiedKFold(k, shuffle=False)`` is fully
+Copies of ``stratified_kfold_test_masks`` and
+``stratified_subsample_indices`` from the JAX package's ``utils/cv.py``
+(numpy only). ``StratifiedKFold(k, shuffle=False)`` is fully
 deterministic, so the assignment is replicated exactly. Masks, not index
 lists: every fold shares one shape, so fold fits batch over a fold axis.
 """
@@ -31,3 +33,32 @@ def stratified_kfold_test_masks(y: np.ndarray, k: int) -> np.ndarray:
     for i in range(k):
         masks[i, test_folds == i] = 1.0
     return masks
+
+
+def stratified_subsample_indices(
+    y: np.ndarray,
+    m: int,
+    rows: np.ndarray | None = None,
+    seed: int = 0,
+) -> np.ndarray:
+    """Deterministic stratified subsample of ``m`` indices (from ``rows``,
+    default all): per-class counts by largest-remainder apportionment of the
+    class frequencies, rows drawn without replacement by a seeded
+    ``numpy`` Generator. Returns sorted indices into the full array."""
+    y = np.asarray(y)
+    rows = np.arange(y.shape[0]) if rows is None else np.asarray(rows)
+    if m >= rows.shape[0]:
+        return np.sort(rows)
+    rng = np.random.default_rng(seed)
+    ysub = y[rows]
+    classes, counts = np.unique(ysub, return_counts=True)
+    quota = m * counts / counts.sum()
+    take = np.floor(quota).astype(int)
+    # largest remainders round up until the total hits m
+    for c in np.argsort(-(quota - take))[: m - take.sum()]:
+        take[c] += 1
+    picked = []
+    for c, t in zip(classes, take):
+        members = rows[ysub == c]
+        picked.append(rng.choice(members, size=t, replace=False))
+    return np.sort(np.concatenate(picked))

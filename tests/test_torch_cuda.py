@@ -336,3 +336,74 @@ def test_fused_fit_kernel_matches_plain(cuda_device, monkeypatch):
     torch.testing.assert_close(ak["train_deviance"], ap["train_deviance"], rtol=1e-4, atol=0)
     torch.testing.assert_close(tree.predict_proba1(pk, Xc), tree.predict_proba1(pp, Xc),
                                rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,B,one_tile", [(1427, 1428, True), (50_000, 50_001, False)])
+def test_stump_kernel_at_exact_bins(cuda_device, n, B, one_tile, val_dtype):
+    """The exact splitter's shapes: int32 bins with B = n + 1 (every
+    unique-value midpoint of a continuous column), in one shared-memory tile
+    at the reference cohort's 1427 rows, and with each feature's cells cut
+    into ranges at 50,000 rows."""
+    rng = np.random.default_rng(n)
+    F = 17
+    cols = [rng.permutation(n) + rng.integers(0, 2) for _ in range(F)]  # distinct ids, some at B-1
+    binned = torch.as_tensor(np.stack(cols, 1).astype(np.int32), device=cuda_device)
+    binned[:, 3] = torch.as_tensor(rng.integers(0, 2, size=n).astype(np.int32))  # a binary column
+    g = torch.as_tensor(rng.normal(size=n).astype(val_dtype), device=cuda_device)
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=n).astype(val_dtype), device=cuda_device)
+    itemsize = np.dtype(val_dtype).itemsize
+    tf, tc, _ = cuda_histogram.tile_plan(F, 2, B, itemsize, cuda_histogram.smem_budget(cuda_device),
+                                         (F * 4, itemsize, itemsize))
+    assert (-(-F // tf) * -(-B // tc) == 1) is one_tile or val_dtype == np.float64
+    assert (tc < B) is not one_tile
+    before = cuda_histogram.LAUNCHES["stump_histograms"]
+    _check_stump(cuda_device, binned, g, h, B)
+    assert cuda_histogram.LAUNCHES["stump_histograms"] == before + 1
+
+
+def test_exact_fit_kernel_matches_plain(cuda_device):
+    """``GBDTConfig()`` ('exact', depth 1) through the stump kernel at int32
+    bins against the same fit through the plain version, at model level;
+    one launch per stage."""
+    X, y, _ = make_cohort(n=1427, seed=2020)
+    X17 = np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32)
+    yf = y.astype(np.float32)
+    cfg = GBDTConfig(n_estimators=20)
+    cuda_histogram.reset_launch_counts()
+    pk, ak = gbdt.fit(X17, yf, cfg, device=cuda_device)
+    assert cuda_histogram.LAUNCHES["stump_histograms"] == 20
+    pp, ap = gbdt.fit(X17, yf, dataclasses.replace(cfg, histogram_backend="xla"),
+                      device=cuda_device)
+    assert cuda_histogram.LAUNCHES["stump_histograms"] == 20
+    assert isinstance(ak["train_deviance"], np.ndarray)
+    np.testing.assert_allclose(ak["train_deviance"], ap["train_deviance"], rtol=1e-4, atol=0)
+    Xc = torch.as_tensor(X17, device=cuda_device)
+    torch.testing.assert_close(tree.predict_proba1(pk, Xc), tree.predict_proba1(pp, Xc),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_imputer_card_matches_cpu(cuda_device):
+    """The imputer on the card against its CPU path on one batch of contract
+    rows (47 of 64 columns missing): the same donors, and so the same
+    imputed values."""
+    from machine_learning_replications_tpu_torch import convert
+    from machine_learning_replications_tpu_torch.models import knn_impute
+
+    X64, _, _ = make_cohort(n=1427, seed=2020, missing_rate=0.03)
+    cpu = knn_impute.fit(X64, device="cpu")
+    card = convert.params_to(cpu, cuda_device)
+    rows = make_cohort(n=4000, seed=7)[0]
+    Xq = np.full_like(rows, np.nan)
+    Xq[:, selected_indices()] = rows[:, selected_indices()]
+    block = knn_impute.resolve_block_fn(cpu, Xq)
+    assert block.dist_cols is not None and len(block.nan_cols) == 47
+    xq = torch.as_tensor(Xq)
+    idx, ok = block.donors(card, xq.to(cuda_device))
+    idx_c, ok_c = block.donors(cpu, xq)
+    assert torch.equal(ok.cpu(), ok_c)
+    assert torch.equal(idx.cpu()[ok_c], idx_c[ok_c])
+    got = knn_impute.transform(card, Xq, chunk_rows=1500)
+    want = knn_impute.transform(cpu, Xq, chunk_rows=1500)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=0)

@@ -95,32 +95,38 @@ def test_fused_fit_rejects_nan(x17, fused_gate):
 
 
 @pytest.mark.parametrize("cfg,match", [
-    (GBDTConfig(splitter="exact"), "_fit_stumps"),
-    # ported since: the level-wise grower fits and matches JAX
-    (GBDTConfig(splitter="hist", max_depth=2, n_estimators=8, n_bins=32), None),
+    # every depth-1 regime is ported since: each fit matches JAX
+    (GBDTConfig(splitter="exact", n_estimators=8), "_fit_stumps"),
+    (GBDTConfig(splitter="hist", max_depth=2, n_estimators=8, n_bins=32), None),  # _fit_binned
     (GBDTConfig(splitter="hist", n_estimators=1), "_fit_stump_host"),
 ])
 def test_unported_regimes_raise(x17, fused_gate, cfg, match):
+    """Each regime that once raised now fits (``match`` names its engine, the
+    grower's case kept as None, its id since slice 2) and matches the JAX fit:
+    forest equal, values and deviance at 1e-9."""
     X, y = x17
-    if match is None:
-        got, aux = gbdt.fit(X, y, cfg, device="cpu")
-        want, want_aux = jgbdt.fit(X, y, JGBDTConfig(**dataclasses.asdict(cfg)))
-        for name in ("feature", "threshold", "left", "right"):
-            np.testing.assert_array_equal(getattr(got, name).numpy(),
-                                          np.asarray(getattr(want, name)), err_msg=name)
-        np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
-                                   rtol=1e-9, atol=1e-12)
-        np.testing.assert_allclose(aux["train_deviance"], want_aux["train_deviance"], rtol=1e-9)
-        return
-    with pytest.raises(NotImplementedError, match=match) as err:
-        gbdt.fit(X, y, cfg, device="cpu")
-    assert "ROADMAP A-next-2" in str(err.value)
+    got, aux = gbdt.fit(X, y, cfg, device="cpu")
+    want, want_aux = jgbdt.fit(X, y, JGBDTConfig(**dataclasses.asdict(cfg)))
+    for name in ("feature", "threshold", "left", "right"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=f"{match} {name}")
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               rtol=1e-9, atol=1e-12)
+    assert isinstance(aux["train_deviance"], np.ndarray)
+    np.testing.assert_allclose(aux["train_deviance"], want_aux["train_deviance"], rtol=1e-9)
 
 
 def test_small_hist_fit_names_unported_path(x17):
+    """'hist' at depth 1 below ``DEVICE_BINNING_MIN_ROWS`` takes the
+    host-binned stump path (it raised before that path was ported) and
+    matches the JAX fit."""
     X, y = x17
-    with pytest.raises(NotImplementedError, match="DEVICE_BINNING_MIN_ROWS"):
-        gbdt.fit(X, y, GBDTConfig(splitter="hist"), device="cpu")
+    cfg = GBDTConfig(splitter="hist", n_estimators=20)
+    got, aux = gbdt.fit(X, y, cfg, device="cpu")
+    want, want_aux = jgbdt.fit(X, y, JGBDTConfig(**dataclasses.asdict(cfg)))
+    for name in ("feature", "threshold"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    np.testing.assert_allclose(aux["train_deviance"], want_aux["train_deviance"], rtol=1e-9)
 
 
 def test_resolve_backend():

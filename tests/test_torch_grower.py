@@ -315,7 +315,7 @@ def test_cv_sweep_and_refit_match_jax():
     np.testing.assert_allclose(got.mean_auc, want.mean_auc, rtol=0, atol=1e-12)
     assert (got.best_n_estimators, got.best_max_depth) == (want.best_n_estimators,
                                                            want.best_max_depth)
-    # refit at depth 2 (a depth-1 'exact' refit below 100k rows is not ported)
+    # refit at depth 2
     at2 = dataclasses.replace(want, best_max_depth=2)
     p_want, c_want = jsweep.refit_best(X, y, at2)
     p_got, c_got = sweep.refit_best(X, y, dataclasses.replace(got, best_max_depth=2),
@@ -326,7 +326,12 @@ def test_cv_sweep_and_refit_match_jax():
     np.testing.assert_allclose(staged.numpy(),
                                np.asarray(jsweep.staged_proba1(p_want, jnp.asarray(X), (1, 2, 4))),
                                rtol=1e-12, atol=1e-14)
-    with pytest.raises(NotImplementedError, match="A-next-2"):
-        sweep.refit_best(X, y, dataclasses.replace(got, best_max_depth=1), device="cpu")
+    # a depth-1 winner refits through the exact stump path
+    at1 = dataclasses.replace(want, best_max_depth=1)
+    p_want, _ = jsweep.refit_best(X, y, at1)
+    p_got, c_got = sweep.refit_best(X, y, dataclasses.replace(got, best_max_depth=1),
+                                    device="cpu")
+    assert c_got.max_depth == 1 and c_got.splitter == "exact"
+    _assert_forest_equal(p_got, p_want)
     with pytest.raises(NotImplementedError, match="item 7"):
         sweep.cv_sweep(X, y, SweepConfig(**grid), mesh=object(), device="cpu")
