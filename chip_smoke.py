@@ -47,15 +47,26 @@ per phase:
            saved and loaded as a port checkpoint, ``cli predict --model`` in
            a subprocess on the card against the CPU port's line, and
            ``pipeline_predict_proba1_contract`` on [1, 17] and [100000, 17]
-           contract rows, card against CPU, donors included.
+           contract rows, card against CPU, donors included;
+  train_pipeline  the reference's ``train`` route: ``fit_pipeline`` (1-NN
+           impute, LassoCV top-17, the stacking fit with its 5-fold CV, the
+           quality profile) on the CLI's 713 + 713 cohort halves, float64,
+           cold and warm with stage seconds, a profile and the SVC solves'
+           steps, held to the CPU port's fit; ``cli train`` then ``cli
+           predict`` in subprocesses on the card; and the scaled fit on
+           50,000 develop rows, float32 (the SVC subsample regime,
+           the exact member at B ≈ n, the fold fits over every row).
 
 The kernel phase also checks and times the stump entry at the exact
 splitter's shapes: int32 bins, B = the cohort's unique values per column
-(1427 at 1427 rows, 49,861 at 50,000).
+(1427 at 1427 rows, 49,861 at 50,000), and both entries at the shapes the
+``train`` route gives them (the member's at 713 rows; the 5 fold fits' root
+level at 713 and 50,000 rows).
 
 Launch counts are set to 0 just before each of train, train_depth,
-fit_exact, sweep, serve and predict and read just after; each kernel entry
-must have launched on that path, and none on the predict path.
+fit_exact, sweep, serve, predict and train_pipeline (its reference-size fit
+and its scaled fit) and read just after; each kernel entry must have
+launched on that path, and none on the predict path.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -98,6 +109,10 @@ TPU_KERNELS = {
     "node_histograms": "machine_learning_replications_tpu/ops/pallas_histogram.py:127",
 }
 STATS = ("grad", "hess", "grad2", "count")
+# Develop rows of the scaled fit_pipeline: bench.py config 4's 50,000.
+SCALED_ROWS = 50_000
+SHAPE_KEYS = ("n", "F", "K", "folds", "B", "bins", "vals", "launches_per_fit_pipeline",
+              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def emit(obj: dict) -> None:
@@ -502,17 +517,20 @@ def profile_call(fn) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = fn()
+    # Summed from the raw trace events: a fit whose solver blocks replay as
+    # CUDA graphs traces millions of kernels, and key_averages() would build
+    # them into Python event trees for minutes. That reader is not a public
+    # torch API, so a run whose trace shows no card event fails here rather
+    # than report an idle card.
     by_name = {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
     busy = sum(by_name.values())
+    check(busy > 0, f"the profile saw the card's kernels: {len(by_name)} CUDA event names")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "device_idle_share": (1 - busy / (wall * 1e3)) if busy else None,
+            "device_idle_share": 1 - busy / (wall * 1e3),
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
@@ -652,7 +670,7 @@ def forests_agree(kernel, plain, X17, yf, dev) -> dict:
     t = int(torch.nonzero(~same)[0, 0])
     bins = binning.bin_features(X17, None)
     binned = torch.as_tensor(bins.binned, device=dev)
-    thresholds = torch.as_tensor(bins.thresholds, dtype=torch.float32, device=dev)
+    thresholds = torch.as_tensor(bins.thresholds, dtype=plain.threshold.dtype, device=dev)
     head = dataclasses.replace(plain, **{k: getattr(plain, k)[:t] for k in
                                          ("feature", "threshold", "left", "right", "value")})
     raw = tree.raw_score(head, torch.as_tensor(X17, device=dev))
@@ -890,6 +908,238 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     return out["launches"]
 
 
+def fold_fit_inputs(rows: int, seed: int, dtype: torch.dtype, dev: torch.device):
+    """The stacking CV's GBDT fold fits at ``rows`` develop rows, at their
+    first tree level: the host bins of the 17 selected variables (256-bin
+    budget, u8 ids), the 5 folds' node ids (0 on a fold's train rows, -1 on
+    its test rows: K = 1) and its masked mid-fit (g, h), in ``dtype``."""
+    from machine_learning_replications_tpu_torch.utils.cv import stratified_kfold_test_masks
+
+    X, y, _ = make_cohort(n=rows, seed=seed)
+    X17 = np.ascontiguousarray(X[:, selected_indices()])
+    bins = binning.bin_features(X17, 256)
+    train = 1.0 - stratified_kfold_test_masks(y, 5)
+    node = torch.as_tensor(np.where(train > 0, 0, -1).astype(np.int32), device=dev)
+    g, h = mid_fit_stats(y, seed + 7, dev)
+    w = torch.as_tensor(train, dtype=dtype, device=dev)
+    return (torch.as_tensor(bins.binned.astype(np.uint8), device=dev), node,
+            g.to(dtype)[None] * w, h.to(dtype)[None] * w, bins.max_bins)
+
+
+def phase_train_kernels(peaks: dict, seed: int, dev: torch.device) -> dict:
+    """Both kernels at the shapes the ``train`` route gives them, against
+    their plain versions (``compare``'s tolerance, node counts exactly), then
+    timed (CUDA events, L2 flushed): the stump kernel at the reference
+    member's shape (713 develop rows, every unique-value midpoint: int32
+    bins, float64 statistics as the reference-size fit runs) and the node
+    kernel at the fold fits' shape (5 folds in one launch, K = 1, u8 bins,
+    B <= 256) at 713 rows in float64 and 50,000 rows in float32."""
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    binned, g, h, B = exact_inputs(713, seed, dev)
+    g, h = g.double(), h.double()
+    got = cuda_histogram.stump_histograms_cuda(binned, g, h, B)
+    want = histogram.stump_histograms_reference(binned, g, h, B)
+    mass = histogram.stump_histograms_reference(binned, g.abs(), h.abs(), B)
+    torch.cuda.synchronize()
+    res = compare(got, want, mass, torch.float64)
+    check(res["ok"], f"stump kernel vs plain at the member's shape: {res}")
+    stump = {"n": binned.shape[0], "F": binned.shape[1], "B": B, "bins": "int32",
+             "vals": "float64", **res,
+             **time_stump(binned, g, h, B, flush, peaks)}
+    nodes = []
+    for rows, dtype in ((713, torch.float64), (50_000, torch.float32)):
+        bins, node, gg, hh, nb = fold_fit_inputs(rows, seed, dtype, dev)
+        got = cuda_histogram.node_histograms_cuda(bins, node, gg, hh, 1, nb)
+        want = histogram.node_histograms(bins, node, gg, hh, 1, nb)
+        mass = histogram.node_histograms(bins, node, gg.abs(), hh.abs(), 1, nb)
+        torch.cuda.synchronize()
+        stats = {st: compare(getattr(got, st), getattr(want, st), getattr(mass, st), dtype)
+                 for st in STATS}
+        exact = bool(torch.equal(got.count, want.count))
+        check(exact and all(v["ok"] for v in stats.values()),
+              f"node kernel vs plain at the fold fits' shape, {rows} rows: {stats}")
+        k, n = node.shape
+        F = bins.shape[1]
+        ids = ((torch.arange(k, device=dev)[:, None, None] * F
+                + torch.arange(F, device=dev)[None, None, :]) * nb + bins.long()[None]).reshape(-1)
+        active = (node >= 0).to(dtype)
+        vals = torch.stack([gg, hh, gg * gg, active], dim=-1)            # [k, n, 4]
+        src = vals[:, :, None, :].expand(k, n, F, 4).reshape(-1, 4).contiguous()
+        lib_out = torch.zeros(k * F * nb, 4, dtype=dtype, device=dev)
+        item = gg.element_size()
+        nodes.append({
+            "n": n, "F": F, "K": 1, "folds": k, "B": nb, "bins": "uint8",
+            "vals": str(dtype).replace("torch.", ""), "counts_exact": exact,
+            "max_abs_err": max(v["max_abs_err"] for v in stats.values()),
+            "max_err_over_mass": max(v["max_err_over_mass"] for v in stats.values()),
+            "ms": timed_ms(lambda: cuda_histogram.node_histograms_cuda(bins, node, gg, hh, 1, nb),
+                           flush),
+            "plain_ms": timed_ms(lambda: histogram.node_histograms(bins, node, gg, hh, 1, nb),
+                                 flush, reps=20),
+            "library_ms": timed_ms(lambda: lib_out.index_add_(0, ids, src), flush),
+            # inputs read once (the bins once for all folds), the four [k, 1, F, B]
+            # outputs written once; 4 additions per active (fold, row, feature)
+            **bound(n * F + k * n * 4 + 2 * k * n * item + 4 * k * F * nb * item,
+                    4 * F * int((node >= 0).sum()), peaks, str(dtype).replace("torch.", "")),
+            "reps": 30, "l2": "flushed before each call"})
+        del src, ids, lib_out
+    del flush
+    emit({"phase": "kernels", "shapes": "train", "stump_histograms": stump,
+          "node_histograms": nodes})
+    return {"stump_histograms": [stump], "node_histograms": nodes}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over the tensor's scale (its largest |want|)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+
+
+def fit_pipeline_timed(X, y, cfg, dev):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, info = pipeline.fit_pipeline(X, y, cfg, device=dev)
+    torch.cuda.synchronize()
+    return params, info, time.perf_counter() - t0
+
+
+def svc_solves(info: dict) -> dict:
+    """Per SVC stage: each batched dual solve's lanes and its most steps."""
+    return {k: [{"lanes": len(v), "max_steps": max(v), "min_steps": min(v)} for v in runs]
+            for k, runs in info["svc_iterations"].items()}
+
+
+def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
+    """The reference's ``train`` route: ``fit_pipeline`` (1-NN impute →
+    LassoCV top-17 → stacking fit with 5-fold CV → quality profile) on the
+    CLI's cohort halves (``make_cohort(1426, missing_rate=0.03)``: 713
+    develop rows, 713 select rows, all 64 variables, ``ExperimentConfig()``,
+    float64) on the card, cold then warm (median of 3) with stage seconds, a
+    profile of one warm fit and the SVC solves' steps; held to the same fit
+    by the CPU port (masks, donors, forests but for a tie, every member and
+    the meta-LR within 1e-6 relative, select-half p1 within 1e-6, AUC within
+    0.005); ``cli train`` then ``cli predict`` in subprocesses on the card;
+    then the scaled fit on ``scaled_rows`` develop rows of
+    ``make_cohort(2 · scaled_rows)``, float32, once. Returns each fit's
+    launch counts by its develop rows."""
+    import tempfile
+
+    from machine_learning_replications_tpu_torch import cli
+    from machine_learning_replications_tpu_torch.config import ExperimentConfig
+    from machine_learning_replications_tpu_torch.data.examples import patient_row
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+    from machine_learning_replications_tpu_torch.utils import metrics
+
+    cfg = ExperimentConfig()
+    n = 713
+    X, y, _ = make_cohort(n=2 * n, seed=seed, missing_rate=0.03)
+    Xd, yd, Xs, ys = X[:n], y[:n], X[n:], y[n:]
+    out = {"phase": "train_pipeline", "rows": n, "select_rows": n, "variables": 64,
+           "dtype": "float64", "config": "ExperimentConfig()"}
+
+    # The main path's run: counts from 0, read right after.
+    cuda_histogram.reset_launch_counts()
+    params, info, cold = fit_pipeline_timed(Xd, yd, cfg, dev)
+    launches = dict(cuda_histogram.LAUNCHES)
+    check(launches["stump_histograms"] == cfg.gbdt.n_estimators,
+          f"one stump launch per stage of the GBDT member: {launches}")
+    check(launches["node_histograms"] == cfg.gbdt.n_estimators * cfg.gbdt.max_depth,
+          f"one node launch per level of the 5 fold fits together: {launches}")
+    warm = [fit_pipeline_timed(Xd, yd, cfg, dev) for _ in range(3)]
+    prof = profile_call(lambda: fit_pipeline_timed(Xd, yd, cfg, dev)[2])
+    t0 = time.perf_counter()
+    cpu, cpu_info = pipeline.fit_pipeline(Xd, yd, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+
+    check(torch.equal(params.support_mask.cpu(), cpu.support_mask), "support masks equal")
+    check(same_params(params.imputer, cpu.imputer), "imputer donors and means equal")
+    agree = forests_agree(params.ensemble.gbdt, convert.params_to(cpu.ensemble.gbdt, dev),
+                          np.ascontiguousarray(
+                              pipeline.impute_select(cpu, Xd).numpy()), yd, dev)
+    errs = {f"svc.{f}": rel_err(getattr(params.ensemble.svc, f), getattr(cpu.ensemble.svc, f))
+            for f in ("dual_coef", "intercept", "prob_a", "prob_b")}
+    for m in ("logreg", "meta"):
+        for f in ("coef", "intercept"):
+            errs[f"{m}.{f}"] = rel_err(getattr(getattr(params.ensemble, m), f),
+                                       getattr(getattr(cpu.ensemble, m), f))
+    check(all(v <= 1e-6 for v in errs.values()), f"card members within 1e-6 relative: {errs}")
+    p1 = pipeline.pipeline_predict_proba1(params, Xs, device=dev).cpu().double()
+    p1_cpu = pipeline.pipeline_predict_proba1(cpu, Xs, device="cpu").double()
+    p1_err = float((p1 - p1_cpu).abs().max())
+    check(p1.shape == (n,) and bool(torch.isfinite(p1).all()), "finite [713] probabilities")
+    check(p1_err <= 1e-6, f"select-half p1 within 1e-6 of the CPU port: {p1_err}")
+    auc, auc_cpu = roc_auc(ys, p1.numpy()), roc_auc(ys, p1_cpu.numpy())
+    check(abs(auc - auc_cpu) <= 0.005, f"AUC within 0.005: {auc} {auc_cpu}")
+    auc_line = (f"AUC-ROC {float(metrics.roc_auc(ys, p1.numpy())):.4f}   average precision "
+                f"{float(metrics.average_precision(ys, p1.numpy())):.4f}")
+    out.update(launches=launches, cold_s=cold, warm_s=statistics.median(w[2] for w in warm),
+               warm_runs_s=[w[2] for w in warm], stage_seconds_cold=info["stage_seconds"],
+               stage_seconds_warm=[w[1]["stage_seconds"] for w in warm],
+               svc_solves=svc_solves(info), profile_warm_fit=prof, cpu_port_s=cpu_s,
+               cpu_stage_seconds=cpu_info["stage_seconds"], member_rel_err=errs,
+               p1_max_abs_err=p1_err, auc=auc, auc_cpu=auc_cpu, auc_line=auc_line,
+               n_selected=info["n_selected"], alpha_=info["selection"]["alpha_"], **agree)
+
+    # cli train on the card (its own process), then cli predict on what it saved.
+    scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        model = f"{tmp}/model"
+        runs = {}
+        for name, argv in (("train", ["train", "--synthetic", str(n), "--seed", str(seed),
+                                      "--save", model]),
+                           ("predict", ["predict", "--model", model])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch",
+                                   *argv], capture_output=True, text=True, timeout=600,
+                                  cwd=Path(__file__).resolve().parent)
+            runs[name] = (proc, time.perf_counter() - t0)
+            check(proc.returncode == 0, f"cli {name} on the card: {proc.stderr[-2000:]}")
+        saved = checkpoint.load_model(model, device="cpu")
+    train_lines = runs["train"][0].stdout.strip().splitlines()
+    check(train_lines[-1] == auc_line,
+          f"cli train's line {train_lines[-1]!r} vs the in-process card fit's {auc_line!r}")
+    cpu_line = (f"Probability of progressive HF is: "
+                f"{100.0 * cli.predict_proba1(saved, patient_row(), torch.device('cpu')):.2f} %")
+    card_line = runs["predict"][0].stdout.strip().splitlines()[-1]
+    check(card_line == cpu_line, f"cli predict on the card {card_line!r} vs the CPU port "
+                                 f"{cpu_line!r}")
+    out.update(cli_train_s=runs["train"][1], cli_predict_s=runs["predict"][1],
+               cli_report=train_lines[-8:], cli_predict_line=card_line)
+
+    # The scaled fit: the SVC subsample regime, the member at B ≈ n, the fold
+    # fits over every row; float32, once.
+    X, y, _ = make_cohort(n=2 * scaled_rows, seed=seed)
+    X32 = np.ascontiguousarray(X, dtype=np.float32)
+    del X
+    Xd, yd, Xs, ys = X32[:scaled_rows], y[:scaled_rows], X32[scaled_rows:], y[scaled_rows:]
+    cuda_histogram.reset_launch_counts()
+    big, big_info, big_s = fit_pipeline_timed(Xd, yd, cfg, dev)
+    big_launches = dict(cuda_histogram.LAUNCHES)
+    check(big_launches["stump_histograms"] == cfg.gbdt.n_estimators
+          and big_launches["node_histograms"] == cfg.gbdt.n_estimators,
+          f"the scaled fit's launches: {big_launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        big.ensemble.svc.dual_coef, big.ensemble.svc.intercept, big.ensemble.svc.prob_a,
+        big.ensemble.svc.prob_b, big.ensemble.gbdt.value, big.ensemble.logreg.coef,
+        big.ensemble.meta.coef, big.ensemble.meta.intercept)), "finite scaled-fit parameters")
+    X17 = pipeline.impute_select(big, Xd)
+    gcfg = gbdt.scaled_member_cfg(cfg.gbdt, *X17.shape)
+    plain, _ = gbdt.fit(X17.cpu().numpy(), yd, dataclasses.replace(gcfg, histogram_backend="xla"),
+                        device=dev)
+    big_agree = forests_agree(big.ensemble.gbdt, plain, X17.cpu().numpy(), yd, dev)
+    p1_big = pipeline.pipeline_predict_proba1(big, Xs, device=dev).cpu().double()
+    check(bool(torch.isfinite(p1_big).all()), "finite scaled-fit probabilities")
+    out["scaled"] = {
+        "rows": scaled_rows, "select_rows": scaled_rows, "dtype": "float32",
+        "member_splitter": gcfg.splitter, "svc_max_rows": cfg.svc.max_rows,
+        "launches": big_launches, "seconds": big_s, "stage_seconds": big_info["stage_seconds"],
+        "svc_solves": svc_solves(big_info), "auc": roc_auc(ys, p1_big.numpy()),
+        "member_vs_plain": big_agree}
+    emit(out)
+    return {n: launches, scaled_rows: big_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000, help="cohort rows for the fits")
@@ -916,6 +1166,8 @@ def main(argv=None) -> int:
             "node_histograms": phase_node_kernels(binned, g, h, peaks, args.seed, dev)}
     del binned, g, h
     kern["stump_histograms"]["exact_shapes"] = phase_exact_kernels(peaks, args.seed, dev)
+    for name, shapes in phase_train_kernels(peaks, args.seed, dev).items():
+        kern[name]["train_shapes"] = shapes
     torch.cuda.empty_cache()
 
     # The main path, one phase at a time: counts from 0 before, read after.
@@ -926,7 +1178,16 @@ def main(argv=None) -> int:
     runs.append(phase_sweep(args.sweep_rows, args.seed, dev))
     runs.append(phase_serve(gbdt_params, X17, args.seed, dev))
     runs.append(phase_predict(gbdt_params, X17, args.seed, dev))
+    torch.cuda.empty_cache()
+    per_fit = phase_train_pipeline(args.seed, SCALED_ROWS, dev)
+    runs.extend(per_fit.values())
     launches = {name: sum(run[name] for run in runs) for name in kern}
+    # Each kernel shape a fit_pipeline reaches carries the launches that fit
+    # (of that many develop rows) was read to make above.
+    for name, k in kern.items():
+        for e in k.get("exact_shapes", []) + k.get("train_shapes", []):
+            if e["n"] in per_fit:
+                e["launches_per_fit_pipeline"] = per_fit[e["n"]][name]
     for name, count in launches.items():
         check(count > 0, f"the main path launched the {name} kernel")
 
@@ -936,9 +1197,8 @@ def main(argv=None) -> int:
         "replaces": TPU_KERNELS[name], "launches": launches[name],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-        **({"exact_shapes": [{key: e[key] for key in (
-            "n", "F", "B", "bins", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for e in k["exact_shapes"]]} if "exact_shapes" in k else {}),
+        **{group: [{key: e[key] for key in SHAPE_KEYS if key in e} for e in k[group]]
+           for group in ("exact_shapes", "train_shapes") if group in k},
     } for name, k in kern.items()]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

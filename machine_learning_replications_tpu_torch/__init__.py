@@ -12,8 +12,9 @@ The one hand-written kernel (the histogram pass of the GBDT fits: the
 depth-1 fits' stump histograms and the level-wise grower's node
 histograms) lives in ``ops/csrc/histogram.cu`` and is built with ``nvcc``
 on first use (``ops/cuda_histogram.py``). ``python -m
-machine_learning_replications_tpu_torch predict --model DIR`` scores one
-patient through a port checkpoint (``cli.py``).
+machine_learning_replications_tpu_torch train`` fits the reference ensemble
+end to end and ``predict --model DIR`` scores one patient through a port
+checkpoint (``cli.py``).
 """
 
 __version__ = "0.1.0"

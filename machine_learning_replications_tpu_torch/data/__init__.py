@@ -1,4 +1,5 @@
-"""Host-side data: the Table S1 schema and the synthetic cohort generator."""
+"""Host-side data: the Table S1 schema, the synthetic cohort generator and
+the reference's ``.mat`` layout."""
 
 from machine_learning_replications_tpu_torch.data.schema import (
     COHORT_SCHEMA,
@@ -7,13 +8,16 @@ from machine_learning_replications_tpu_torch.data.schema import (
     selected_indices,
     variable_names,
 )
+from machine_learning_replications_tpu_torch.data.matloader import load_data, save_data
 from machine_learning_replications_tpu_torch.data.synthetic import make_cohort
 
 __all__ = [
     "COHORT_SCHEMA",
     "N_COHORT",
     "SELECTED_17",
+    "load_data",
     "make_cohort",
+    "save_data",
     "selected_indices",
     "variable_names",
 ]

@@ -57,6 +57,13 @@ def float_dtype(*tensors: torch.Tensor) -> torch.dtype:
     return dt
 
 
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for on the CPU):
+    a host clock read after it covers the device's work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def to_host(a) -> np.ndarray:
     """A tensor on any device, or anything array-like, as a host numpy array."""
     if isinstance(a, torch.Tensor):

@@ -1,1 +1,2 @@
-"""Model members (scaler, SVC, GBDT, logistic regressions), stacking and the CV sweep."""
+"""Model members (scaler, SVC, GBDT, logistic regressions) and their solvers,
+feature selection, stacking, the full pipeline and the CV sweep."""

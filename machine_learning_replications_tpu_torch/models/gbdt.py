@@ -33,8 +33,9 @@ NaN flag is read once, after the loop. The grower carries a leading fit axis
 folds share one histogram launch — where the JAX package ``vmap``s the folds
 and so keeps its Pallas kernel off them.
 
-Not ported yet: ``fit_resumable`` (it waits for the training solvers,
-ROADMAP item 6).
+``fit_resumable`` runs the same stage loops in chunks, checkpointing the
+boosting carry (``persist.checkpoint.save_step``) after each, and
+``scaled_member_cfg`` is the stacking member's splitter switch at scale.
 """
 
 from __future__ import annotations
@@ -253,6 +254,118 @@ def _fit_fused(X, y, cfg: GBDTConfig, backend: str, dev: torch.device):
     return params, {"train_deviance": deviance}
 
 
+def fit_resumable(
+    X: "np.ndarray | torch.Tensor",
+    y: "np.ndarray | torch.Tensor",
+    cfg: GBDTConfig = GBDTConfig(),
+    *,
+    checkpoint_dir: str,
+    checkpoint_every: int = 10,
+    bins: binning.BinnedFeatures | None = None,
+    _interrupt_after_chunks: int | None = None,
+    device=None,
+) -> tuple[TreeEnsembleParams, dict[str, Any]]:
+    """``fit`` with checkpoint-and-restart every ``checkpoint_every`` boosting
+    stages, on host bins (``bin_budget(cfg)``) at every depth.
+
+    The checkpoint unit is the boosting carry (raw scores, the forest
+    tensors, the deviance path), published as ``step_<stages done>`` under
+    ``checkpoint_dir`` (``persist.checkpoint.save_step``, the newest two
+    kept). On entry the newest step that loads is restored and training
+    continues from there. The stages are deterministic on the CPU, so a
+    resumed fit is bit-identical to an unbroken one there; on the card the
+    histogram kernel's float atomics add in no fixed order, so two fits —
+    resumed or not — agree to rounding.
+
+    ``_interrupt_after_chunks`` is a test hook: raise ``SimulatedInterrupt``
+    after that many chunks to emulate preemption."""
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+
+    dev = resolve_device(device)
+    backend = resolve_backend(cfg, dev)
+    dtype = float_dtype(torch.as_tensor(X))
+    if bins is None:
+        bins = binning.bin_features(to_host(X), bin_budget(cfg))
+    binned = _device_bins(bins.binned, bins.max_bins, dev)
+    thresholds = torch.as_tensor(bins.thresholds, dtype=dtype, device=dev)
+    yj = torch.as_tensor(y, device=dev)
+    ys = yj.to(dtype)
+    n_stages = cfg.n_estimators
+    opts = dict(learning_rate=cfg.learning_rate, min_samples_split=cfg.min_samples_split,
+                min_samples_leaf=cfg.min_samples_leaf, backend=backend)
+    if cfg.max_depth == 1:
+        carry = _stump_init(ys, _prior_log_odds(ys), n_stages)
+
+        def run(carry, s, e):
+            return _run_stumps(binned, thresholds, ys, carry, s, e, **opts)
+    else:
+        carry = _binned_init(thresholds, yj, n_stages, cfg.max_depth)
+
+        def run(carry, s, e):
+            return _run_binned(binned, thresholds, yj, carry, s, e, depth=cfg.max_depth,
+                               max_bins=bins.max_bins, **opts)
+
+    start, restored = checkpoint.restore_latest_step(checkpoint_dir, device=dev)
+    if start:
+        carry = restored
+    chunks_done = 0
+    for s in range(start, n_stages, checkpoint_every):
+        e = min(s + checkpoint_every, n_stages)
+        carry = run(carry, s, e)
+        checkpoint.save_step(checkpoint_dir, e, carry)
+        chunks_done += 1
+        if (_interrupt_after_chunks is not None and chunks_done >= _interrupt_after_chunks
+                and e < n_stages):
+            raise checkpoint.SimulatedInterrupt(f"after stage {e}")
+
+    _, feats, thrs, vals, splits, devs = carry
+    params = forest_to_params(
+        feats, thrs, vals, splits, init_raw=_prior_log_odds(ys),
+        learning_rate=cfg.learning_rate, max_depth=cfg.max_depth,
+    )
+    return params, {"train_deviance": to_host(devs)}
+
+
+# The JAX package's depth-1 'exact' fit lays rows out sorted, replicated per
+# feature, and refuses a layout past this budget; its pipeline member
+# switches to 'hist' before that (``scaled_member_cfg``). The port has no
+# sorted layout, but keeps the estimate and its constants (the JAX
+# ``ops/histogram.py`` blocked-boundary threshold and block) so the member
+# switches splitter at the same row counts as in JAX.
+_STUMP_LAYOUT_BYTES_BUDGET = 4 << 30
+_BLOCKED_BOUNDARY_MIN_N = 16_384
+_BOUNDARY_BLOCK = 512
+
+
+def _stump_layout_bytes(n: int, F: int, B: int) -> int:
+    """The JAX depth-1 sorted layout's dominant allocations at ``B`` split
+    candidates: the ``[F, F, n]`` bins tensor plus (above the
+    blocked-boundary threshold) the per-stage ``[F, B-1, block]``
+    boundary-partial buffer."""
+    itemsize = 1 if B <= 256 else 2 if B <= 65536 else 4
+    est = F * F * n * itemsize
+    if n >= _BLOCKED_BOUNDARY_MIN_N:
+        est += F * max(B - 1, 1) * _BOUNDARY_BLOCK * 8
+    return est
+
+
+def scaled_member_cfg(cfg: GBDTConfig, n_rows: int, n_features: int) -> GBDTConfig:
+    """The pipeline's full-data GBDT member config at scale: a depth-1
+    'exact' config switches to 'hist' at device-binning scale, or where the
+    JAX sorted layout's worst case (B ≈ n) would pass its budget — the JAX
+    package's rule, so both packages fit the same member at every row count.
+    Other configs pass through."""
+    import dataclasses
+
+    if cfg.splitter != "exact" or cfg.max_depth != 1:
+        return cfg
+    if n_rows >= DEVICE_BINNING_MIN_ROWS or (
+        _stump_layout_bytes(n_rows, n_features, n_rows) > _STUMP_LAYOUT_BYTES_BUDGET
+    ):
+        return dataclasses.replace(cfg, splitter="hist")
+    return cfg
+
+
 def _device_bins(binned, max_bins: int, dev: torch.device) -> torch.Tensor:
     """The bin matrix on ``dev``, one byte wide where ``max_bins <= 256``:
     it is the only O(n·F) array every tree level reads."""
@@ -281,7 +394,46 @@ def _fit_stumps(
 ):
     """All stages of a depth-1 fit over the loop-invariant bin matrix →
     ``(feature, threshold, value, is_split, deviance, f0)``, the forest in
-    ``[n_stages, 3]`` heap layout, all on ``binned``'s device.
+    ``[n_stages, 3]`` heap layout, all on ``binned``'s device."""
+    f0 = _prior_log_odds(ys)
+    carry = _run_stumps(
+        binned, thresholds, ys, _stump_init(ys, f0, n_stages), 0, n_stages,
+        learning_rate=learning_rate, min_samples_split=min_samples_split,
+        min_samples_leaf=min_samples_leaf, backend=backend,
+    )
+    return (*carry[1:], f0)
+
+
+def _stump_init(ys: torch.Tensor, f0: torch.Tensor, n_stages: int):
+    """Depth-1 boosting carry at stage 0 (the checkpoint/resume unit): raw
+    scores, the four ``[n_stages, 3]`` forest tensors, deviance."""
+    n, dtype, dev = ys.shape[0], ys.dtype, ys.device
+    return (
+        torch.full((n,), 0.0, dtype=dtype, device=dev) + f0,
+        torch.zeros((n_stages, 3), dtype=torch.int32, device=dev),
+        torch.full((n_stages, 3), torch.inf, dtype=dtype, device=dev),
+        torch.zeros((n_stages, 3), dtype=dtype, device=dev),
+        torch.zeros((n_stages, 3), dtype=torch.bool, device=dev),
+        torch.zeros(n_stages, dtype=dtype, device=dev),
+    )
+
+
+def _run_stumps(
+    binned: torch.Tensor,
+    thresholds: torch.Tensor,
+    ys: torch.Tensor,
+    carry,
+    start: int,
+    stop: int,
+    *,
+    learning_rate: float,
+    min_samples_split: int,
+    min_samples_leaf: int,
+    backend: str,
+):
+    """Stages ``[start, stop)`` of a depth-1 fit from ``carry``
+    (``_stump_init``'s layout); the forest and deviance tensors are written
+    in place and the new carry is returned.
 
     The one stage loop of both depth-1 device regimes: the fused fit (device
     quantile bins, u8) and the host-binned fit (the JAX package's
@@ -299,23 +451,17 @@ def _fit_stumps(
     n_bins = thresholds.shape[1] + 1
     dtype = thresholds.dtype
     dev = binned.device
-    f0 = _prior_log_odds(ys)
     CL = _left_counts(binned, n_bins).to(dtype)[None]        # [1, F, B-1]
     CT = torch.tensor([n], dtype=dtype, device=dev)
     Bm1 = n_bins - 1
 
-    raw = torch.full((n,), 0.0, dtype=dtype, device=dev) + f0
-    feats = torch.zeros((n_stages, 3), dtype=torch.int32, device=dev)
-    thrs = torch.full((n_stages, 3), torch.inf, dtype=dtype, device=dev)
-    vals = torch.zeros((n_stages, 3), dtype=dtype, device=dev)
-    splits = torch.zeros((n_stages, 3), dtype=torch.bool, device=dev)
-    devs = torch.zeros(n_stages, dtype=dtype, device=dev)
+    raw, feats, thrs, vals, splits, devs = carry
     zero = torch.zeros((), dtype=dtype, device=dev)
     inf = torch.full((1,), torch.inf, dtype=dtype, device=dev)
     no_split = torch.zeros(2, dtype=torch.bool, device=dev)
     feat_mask = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
 
-    for t in range(n_stages):
+    for t in range(start, stop):
         p = torch.sigmoid(raw)
         g = ys - p
         h = p * (1.0 - p)
@@ -351,7 +497,7 @@ def _fit_stumps(
                              torch.where(do, v_r, zero)])
         splits[t] = torch.cat([do, no_split])
 
-    return feats, thrs, vals, splits, devs, f0
+    return raw, feats, thrs, vals, splits, devs
 
 
 # Host single-stump engine: quantile candidates come from a systematic

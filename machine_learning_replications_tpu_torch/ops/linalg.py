@@ -14,11 +14,11 @@ import torch
 
 
 def pairwise_sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``out[i, j] = ‖x_i − y_j‖²``, clamped at 0 against the small negative
-    values the rank-1 form can produce."""
+    """``out[..., i, j] = ‖x_i − y_j‖²`` (leading dimensions batch), clamped
+    at 0 against the small negative values the rank-1 form can produce."""
     xx = torch.sum(x * x, dim=-1, keepdim=True)
     yy = torch.sum(y * y, dim=-1, keepdim=True)
-    d2 = xx + yy.T - 2.0 * (x @ y.T)
+    d2 = xx + yy.transpose(-1, -2) - 2.0 * (x @ y.transpose(-1, -2))
     return torch.clamp_min(d2, 0.0)
 
 

@@ -177,10 +177,14 @@ def save_model(path: "str | os.PathLike", params: Any) -> int:
     """Publish ``params`` (a ``PipelineParams``, ``StackingParams`` or
     ``TreeEnsembleParams``) at ``path`` atomically; a checkpoint already
     there becomes the last-known-good. Returns the new version."""
-    path = os.path.abspath(os.fspath(path))
     family = type(params).__name__
     if family not in FAMILIES:
         raise TypeError(f"a checkpoint holds one of {FAMILIES}, not {family}")
+    return _publish(path, params, family)
+
+
+def _publish(path: "str | os.PathLike", params: Any, family: str) -> int:
+    path = os.path.abspath(os.fspath(path))
     prev = [v for v in (checkpoint_version(path), checkpoint_version(lastgood_path(path)))
             if v is not None]
     version = (max(prev) if prev else 0) + 1
@@ -218,17 +222,17 @@ def save_model(path: "str | os.PathLike", params: Any) -> int:
     return version
 
 
-def _load_at(path: str, dev: torch.device) -> Any:
+def _load_at(path: str, dev: torch.device, families: tuple[str, ...] = FAMILIES) -> Any:
     verify_checkpoint(path)
     with open(os.path.join(path, SIDECAR_FILE)) as f:
         sidecar = json.load(f)
-    if sidecar.get("format") != FORMAT or sidecar.get("family") not in FAMILIES:
+    if sidecar.get("format") != FORMAT or sidecar.get("family") not in families:
         raise ValueError(f"unknown checkpoint format or family in {path!r}: "
                          f"{sidecar.get('format')!r}, {sidecar.get('family')!r}")
     with np.load(os.path.join(path, TENSORS_FILE), allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
     params = _decode(sidecar["root"], arrays, dev)
-    if type(params).__name__ != sidecar["family"]:
+    if sidecar["family"] in FAMILIES and type(params).__name__ != sidecar["family"]:
         raise ValueError(f"sidecar family {sidecar['family']!r} does not match its root")
     return params
 
@@ -258,3 +262,169 @@ def load_model(path: "str | os.PathLike", *, device=None) -> Any:
     """The parameters of the checkpoint at ``path`` on ``device`` (default:
     the card), with ``load_model_versioned``'s fallback."""
     return load_model_versioned(path, device=device)[0]
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoints: fit stages and boosting steps
+# ---------------------------------------------------------------------------
+#
+# The same tree format (``tensors.npz`` + sidecar + integrity manifest,
+# published by one rename) holds any tree ``_encode`` takes — tuples, dicts,
+# tensors, statics and the parameter classes — under the sidecar family
+# ``TREE_FAMILY``. A directory that exists under its final name is complete.
+
+TREE_FAMILY = "tree"
+FINGERPRINT_FILE = "fingerprint.json"
+_STEP_PREFIX = "step_"
+
+
+class SimulatedInterrupt(RuntimeError):
+    """Raised by test hooks to emulate preemption mid-training."""
+
+
+def save_tree(path: "str | os.PathLike", tree: Any) -> int:
+    """Publish an arbitrary encodable tree at ``path`` atomically."""
+    return _publish(path, tree, TREE_FAMILY)
+
+
+def load_tree(path: "str | os.PathLike", *, device=None) -> Any:
+    """The tree published at ``path`` (integrity checked first), tensors on
+    ``device`` (default: the card)."""
+    return _load_at(os.path.abspath(os.fspath(path)), resolve_device(device), (TREE_FAMILY,))
+
+
+def _complete(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, INTEGRITY_FILE))
+
+
+def _steps(directory: str) -> list[int]:
+    """Completed boosting steps under ``directory``, newest first."""
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        tail = name[len(_STEP_PREFIX):]
+        if name.startswith(_STEP_PREFIX) and tail.isdigit() and _complete(
+                os.path.join(directory, name)):
+            steps.append(int(tail))
+    return sorted(steps, reverse=True)
+
+
+def _step_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"{_STEP_PREFIX}{step:08d}")
+
+
+def save_step(directory: "str | os.PathLike", step: int, carry: Any, *,
+              max_to_keep: int = 2) -> None:
+    """Publish a boosting carry as step ``step`` (stages completed) and keep
+    only the newest ``max_to_keep`` steps — enough to survive a failure
+    during a save."""
+    directory = os.path.abspath(os.fspath(directory))
+    os.makedirs(directory, exist_ok=True)
+    save_tree(_step_path(directory, step), carry)
+    for old in _steps(directory)[max_to_keep:]:
+        shutil.rmtree(_step_path(directory, old), ignore_errors=True)
+        shutil.rmtree(lastgood_path(_step_path(directory, old)), ignore_errors=True)
+
+
+def restore_latest_step(directory: "str | os.PathLike", *, device=None) -> tuple[int, Any]:
+    """``(step, carry)`` of the newest step under ``directory`` that loads
+    (an older one when the newest fails its integrity check), or ``(0,
+    None)``."""
+    directory = os.path.abspath(os.fspath(directory))
+    for step in _steps(directory):
+        try:
+            return step, load_tree(_step_path(directory, step), device=device)
+        except (CheckpointIntegrityError, OSError, ValueError, KeyError) as exc:
+            print(f"boosting step {step} in {directory!r} failed to load "
+                  f"({type(exc).__name__}: {exc}); trying an older one", file=sys.stderr)
+    return 0, None
+
+
+class StageCheckpointer:
+    """Stage-level checkpoint/resume for multi-stage fits (the JAX package's
+    ``persist/orbax_io.StageCheckpointer``). Each named stage's output tree
+    is published durably under ``root/<name>``; on re-entry a completed
+    stage is restored instead of recomputed. Stage outputs are
+    deterministic, so a resumed fit equals an unbroken one. With ``root``
+    None every stage runs straight through and nothing is written.
+
+    ``fingerprint`` binds the directory to the fit's inputs: a directory
+    written by a fit with other inputs, or one holding completed stages
+    without a readable fingerprint, is refused. A stage whose checkpoint
+    fails to load (torn or corrupt files) is discarded and recomputed.
+    ``timings`` (a dict) receives each stage's seconds, its queued device
+    work included. ``_interrupt_after`` is the test hook that raises
+    ``SimulatedInterrupt`` right after the named stage is durable."""
+
+    def __init__(self, root: "str | os.PathLike | None", *, device=None,
+                 _interrupt_after: str | None = None, fingerprint: str | None = None,
+                 timings: "dict | None" = None) -> None:
+        self.root = None if root is None else os.path.abspath(os.fspath(root))
+        self.device = resolve_device(device)
+        self.timings = {} if timings is None else timings
+        self._interrupt_after = _interrupt_after
+        if self.root is not None:
+            os.makedirs(self.root, exist_ok=True)
+            if fingerprint is not None:
+                self._check_fingerprint(fingerprint)
+
+    def _check_fingerprint(self, fingerprint: str) -> None:
+        fp_path = os.path.join(self.root, FINGERPRINT_FILE)
+        stored = None
+        try:
+            with open(fp_path) as f:
+                stored = json.load(f)["fingerprint"]
+        except FileNotFoundError:
+            pass
+        except (OSError, ValueError, KeyError, TypeError):
+            stored = None  # a torn write: treated as absent, below
+        if stored is not None:
+            if stored != fingerprint:
+                raise RuntimeError(
+                    f"checkpoint dir {self.root!r} was written by a fit with different "
+                    f"inputs (stored fingerprint {str(stored)[:16]}…, this fit "
+                    f"{fingerprint[:16]}…); pass a fresh checkpoint_dir or delete the stale one")
+            return
+        stray = [d for d in sorted(os.listdir(self.root))
+                 if _complete(os.path.join(self.root, d))]
+        if stray:
+            raise RuntimeError(
+                f"checkpoint dir {self.root!r} holds completed stages ({', '.join(stray)}) "
+                "but no fingerprint recording which inputs produced them; pass a fresh "
+                "checkpoint_dir or delete the stale one")
+        tmp = f"{fp_path}.tmp.{os.getpid()}"
+        fsync_json_dump(tmp, {"fingerprint": fingerprint})
+        os.replace(tmp, fp_path)
+
+    def completed(self, name: str) -> bool:
+        return self.root is not None and _complete(os.path.join(self.root, name))
+
+    def run(self, name: str, compute):
+        """The stage's output: restored if previously completed, else
+        ``compute()`` then published (before the interrupt hook fires)."""
+        import time
+
+        from machine_learning_replications_tpu_torch.device import synchronize
+
+        if self.completed(name):
+            path = os.path.join(self.root, name)
+            try:
+                out = load_tree(path, device=self.device)
+                print(f"stage {name!r} restored from checkpoint", file=sys.stderr)
+                return out
+            except (CheckpointIntegrityError, OSError, ValueError, KeyError) as exc:
+                shutil.rmtree(path, ignore_errors=True)
+                print(f"stage {name!r}: checkpoint corrupt ({type(exc).__name__}) — "
+                      "discarded, recomputing", file=sys.stderr)
+        t0 = time.perf_counter()
+        out = compute()
+        synchronize(self.device)
+        if self.root is not None:
+            save_tree(os.path.join(self.root, name), out)
+        self.timings[name] = time.perf_counter() - t0
+        print(f"stage {name!r} done in {self.timings[name]:.1f}s"
+              + (" (checkpointed)" if self.root is not None else ""), file=sys.stderr)
+        if self._interrupt_after == name:
+            raise SimulatedInterrupt(f"after stage {name!r}")
+        return out

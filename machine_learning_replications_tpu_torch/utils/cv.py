@@ -1,9 +1,9 @@
-"""Deterministic replication of sklearn's unshuffled stratified CV folds,
-and the stratified subsample the imputer's donor cap draws.
+"""Deterministic replication of sklearn's unshuffled CV fold assignment,
+and the stratified subsample the scaled-regime guards draw.
 
-Copies of ``stratified_kfold_test_masks`` and
-``stratified_subsample_indices`` from the JAX package's ``utils/cv.py``
-(numpy only). ``StratifiedKFold(k, shuffle=False)`` is fully
+Copies of ``kfold_test_masks``, ``stratified_kfold_test_masks{,_within}``
+and ``stratified_subsample_indices`` from the JAX package's
+``utils/cv.py`` (numpy only). ``StratifiedKFold(k, shuffle=False)`` is fully
 deterministic, so the assignment is replicated exactly. Masks, not index
 lists: every fold shares one shape, so fold fits batch over a fold axis.
 """
@@ -11,6 +11,34 @@ lists: every fold shares one shape, so fold fits batch over a fold axis.
 from __future__ import annotations
 
 import numpy as np
+
+
+def kfold_test_masks(n: int, k: int) -> np.ndarray:
+    """``KFold(k, shuffle=False)``: contiguous blocks, first ``n % k`` folds
+    one row larger. Returns ``[k, n]`` float 0/1 test masks."""
+    sizes = np.full(k, n // k)
+    sizes[: n % k] += 1
+    masks = np.zeros((k, n))
+    start = 0
+    for i, sz in enumerate(sizes):
+        masks[i, start : start + sz] = 1.0
+        start += sz
+    return masks
+
+
+def stratified_kfold_test_masks_within(
+    y: np.ndarray, k: int, row_mask: np.ndarray
+) -> np.ndarray:
+    """Stratified k-fold test masks of the subset ``row_mask == 1``, expanded
+    back to full-length ``[k, n]`` masks (rows outside the subset are 0 in
+    every fold). Matches sklearn fitting ``StratifiedKFold(k)`` on the
+    subset — the nested Platt CV inside each stacking fold fit."""
+    y = np.asarray(y)
+    rows = np.where(np.asarray(row_mask) > 0.5)[0]
+    sub = stratified_kfold_test_masks(y[rows], k)  # [k, n_sub]
+    masks = np.zeros((k, y.shape[0]))
+    masks[:, rows] = sub
+    return masks
 
 
 def stratified_kfold_test_masks(y: np.ndarray, k: int) -> np.ndarray:

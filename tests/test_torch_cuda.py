@@ -407,3 +407,89 @@ def test_imputer_card_matches_cpu(cuda_device):
     want = knn_impute.transform(cpu, Xq, chunk_rows=1500)
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=0)
+
+
+def _member_and_fold_inputs(rows, seed, dev):
+    """The ``train`` route's histogram inputs at ``rows`` develop rows: the
+    exact member's int32 bins of every unique-value midpoint, and the fold
+    fits' u8 bins (256-bin budget) with the 5 folds' root node ids."""
+    from machine_learning_replications_tpu_torch.ops import binning
+    from machine_learning_replications_tpu_torch.utils.cv import stratified_kfold_test_masks
+
+    X, y, _ = make_cohort(n=rows, seed=seed)
+    X17 = np.ascontiguousarray(X[:, selected_indices()])
+    exact = binning.bin_features(X17, None)
+    capped = binning.bin_features(X17, 256)
+    train = 1.0 - stratified_kfold_test_masks(y, 5)
+    node = torch.as_tensor(np.where(train > 0, 0, -1).astype(np.int32), device=dev)
+    return (torch.as_tensor(exact.binned, device=dev), exact.max_bins,
+            torch.as_tensor(capped.binned.astype(np.uint8), device=dev), capped.max_bins, node,
+            torch.as_tensor(train, device=dev))
+
+
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+def test_kernels_at_the_train_route_shapes(cuda_device, val_dtype):
+    """The stump kernel at the reference member's shape (713 rows, int32
+    bins, B = unique midpoints + 1) and the node kernel at the stacking CV's
+    fold fits (5 folds in one launch, K = 1, u8 bins, B <= 256)."""
+    ebins, eB, fbins, fB, node, train = _member_and_fold_inputs(713, 2020, cuda_device)
+    rng = np.random.default_rng(3)
+    g = torch.as_tensor(rng.normal(size=713).astype(val_dtype), device=cuda_device)
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=713).astype(val_dtype), device=cuda_device)
+    assert ebins.dtype == torch.int32 and 256 < eB <= 714
+    _check_stump(cuda_device, ebins, g, h, eB)
+    w = train.to(g.dtype)
+    _check_node(cuda_device, fbins, node, g[None] * w, h[None] * w, 1, fB)
+
+
+def test_train_solvers_card_match_cpu(cuda_device):
+    """The solver loops replayed as CUDA graphs on the card against the same
+    loops run eagerly on the CPU: the batched dual solve (Platt lanes
+    sharing K), the L1-LR fold lanes and LassoCV, at 1e-7: products on the
+    card add in another order than on the CPU."""
+    from machine_learning_replications_tpu_torch.models import scaler, solvers, svm
+
+    X, y, _ = make_cohort(n=300, seed=11)
+    X17 = torch.as_tensor(np.ascontiguousarray(X[:, selected_indices()]))
+    yt = torch.as_tensor(y)
+    Xt = scaler.transform(scaler.fit(X17), X17)
+    cpu = svm.svc_fit(Xt, yt, tol=1e-3)
+    its = []
+    card = svm.svc_fit(Xt.to(cuda_device), yt.to(cuda_device), tol=1e-3, iterations=its)
+    assert its and max(its[0]) > svm._KKT_CHECK_EVERY
+    for f in ("dual_coef", "intercept", "prob_a", "prob_b"):
+        torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f), rtol=1e-7, atol=1e-7)
+    masks = torch.as_tensor((np.random.default_rng(4).random((5, 300)) < 0.8).astype(float))
+    lc = solvers.logreg_l1_fit(X17, yt, sample_mask=masks)
+    lg = solvers.logreg_l1_fit(X17.to(cuda_device), yt.to(cuda_device),
+                               sample_mask=masks.to(cuda_device))
+    torch.testing.assert_close(lg.coef.cpu(), lc.coef, rtol=1e-7, atol=1e-7)
+    X64 = torch.as_tensor(X)
+    kc = solvers.lasso_cv(X64, yt, cv_folds=5, n_alphas=20)
+    kg = solvers.lasso_cv(X64.to(cuda_device), yt.to(cuda_device), cv_folds=5, n_alphas=20)
+    for a, b in zip(kg, kc):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-7, atol=1e-7)
+
+
+def test_fit_pipeline_card_matches_cpu(cuda_device):
+    """``fit_pipeline`` on the card against the CPU port at a small size:
+    the same selection, donors and forest (one stump launch per stage, one
+    node launch per level of the 5 fold fits), the same predictions."""
+    from machine_learning_replications_tpu_torch.config import ExperimentConfig
+    from machine_learning_replications_tpu_torch.models import pipeline
+
+    X, y, _ = make_cohort(n=400, seed=2020, missing_rate=0.03)
+    cfg = ExperimentConfig.from_dict({"gbdt": {"n_estimators": 10}, "svc": {"platt_cv": 2},
+                                      "select": {"cv_folds": 3, "n_alphas": 20}})
+    cuda_histogram.reset_launch_counts()
+    card, _ = pipeline.fit_pipeline(X[:200], y[:200], cfg, device=cuda_device)
+    assert cuda_histogram.LAUNCHES["stump_histograms"] == 10
+    assert cuda_histogram.LAUNCHES["node_histograms"] == 10
+    cpu, _ = pipeline.fit_pipeline(X[:200], y[:200], cfg, device="cpu")
+    assert torch.equal(card.support_mask.cpu(), cpu.support_mask)
+    torch.testing.assert_close(card.imputer.donors.cpu(), cpu.imputer.donors, equal_nan=True,
+                               rtol=0, atol=0)
+    assert torch.equal(card.ensemble.gbdt.feature.cpu(), cpu.ensemble.gbdt.feature)
+    p_card = pipeline.pipeline_predict_proba1(card, X[200:], device=cuda_device).cpu()
+    p_cpu = pipeline.pipeline_predict_proba1(cpu, X[200:], device="cpu")
+    torch.testing.assert_close(p_card, p_cpu, rtol=0, atol=1e-6)
