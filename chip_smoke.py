@@ -51,11 +51,28 @@ per phase:
   train_pipeline  the reference's ``train`` route: ``fit_pipeline`` (1-NN
            impute, LassoCV top-17, the stacking fit with its 5-fold CV, the
            quality profile) on the CLI's 713 + 713 cohort halves, float64,
-           cold and warm with stage seconds, a profile and the SVC solves'
-           steps, held to the CPU port's fit; ``cli train`` then ``cli
-           predict`` in subprocesses on the card; and the scaled fit on
-           50,000 develop rows, float32 (the SVC subsample regime,
-           the exact member at B ≈ n, the fold fits over every row).
+           cold and warm with stage seconds (one warm fit under a span
+           tracer: its ``stage:*`` spans against ``stage_seconds``), a
+           profile and the SVC solves' steps, held to the CPU port's fit;
+           ``cli train --trace-dir --journal`` then ``cli predict`` in
+           subprocesses on the card (the journal: manifest first with the
+           card's name, at least 6 ``stage_start``, ``run_done`` last with
+           graph captures and the in-process fit's kernel launches; the
+           trace: every ``stage:*`` span inside ``train``); and the scaled
+           fit on 50,000 develop rows, float32 (the SVC subsample regime,
+           the exact member at B ≈ n, the fold fits over every row);
+  cli      ``cli sweep --synthetic 50000 --save DIR`` in-process on the
+           default grid, (25, 50, 100, 200) x (1, 2, 3) x 5 folds, on the
+           imputed develop half of ``make_cohort(100000, missing_rate=0.03)``
+           (float64, as the CLI hands it over): its printed grid within 0.005
+           of ``cv_sweep`` through the plain version on the same imputed
+           rows, its ``best:`` cell within 0.005 of the best; ``cli predict
+           --model DIR`` in a subprocess against the saved forest's line;
+           then ``cli import-sklearn`` of the committed sklearn-layout
+           fixture, ``cli predict --model`` on the import and ``cli predict
+           --pkl`` on the fixture, each a subprocess on the card, all three
+           lines equal to the CPU port's, and the imported ensemble's
+           ``[64, 17]`` probabilities card against CPU at (1e-5, 1e-8).
 
 The kernel phase also checks and times the stump entry at the exact
 splitter's shapes: int32 bins, B = the cohort's unique values per column
@@ -64,9 +81,10 @@ splitter's shapes: int32 bins, B = the cohort's unique values per column
 level at 713 and 50,000 rows).
 
 Launch counts are set to 0 just before each of train, train_depth,
-fit_exact, sweep, serve, predict and train_pipeline (its reference-size fit
-and its scaled fit) and read just after; each kernel entry must have
-launched on that path, and none on the predict path.
+fit_exact, sweep, serve, predict, cli (its in-process ``cli sweep``) and
+train_pipeline (its reference-size fit and its scaled fit) and read just
+after; each kernel entry must have launched on that path, and none on the
+predict path.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -93,6 +111,7 @@ from machine_learning_replications_tpu_torch.data import make_cohort, selected_i
 from machine_learning_replications_tpu_torch.models import (
     gbdt, knn_impute, linear, pipeline, scaler, stacking, svm, sweep, tree,
 )
+from machine_learning_replications_tpu_torch.obs import spans
 from machine_learning_replications_tpu_torch.ops import binning, cuda_histogram, histogram
 
 # Published peaks by H100 part (NVIDIA data sheets, dense, at the full power
@@ -827,8 +846,6 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     counts must stay 0."""
     import tempfile
 
-    from machine_learning_replications_tpu_torch import cli
-    from machine_learning_replications_tpu_torch.data.examples import patient_row
     from machine_learning_replications_tpu_torch.persist import checkpoint
 
     cuda_histogram.reset_launch_counts()
@@ -846,15 +863,9 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
         loaded = checkpoint.load_model(path, device=dev)
         load_s = time.perf_counter() - t0
         check(same_params(params, loaded), "the checkpoint loads back equal tensors")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch",
-                               "predict", "--model", path], capture_output=True, text=True,
-                              timeout=300, cwd=Path(__file__).resolve().parent)
-        cli_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"cli predict on the card: {proc.stderr[-2000:]}")
+        proc, cli_s = run_cli(["predict", "--model", path], timeout=300)
     params_cpu = convert.params_to(params, "cpu")
-    cpu_line = (f"Probability of progressive HF is: "
-                f"{100.0 * cli.predict_proba1(params_cpu, patient_row(), torch.device('cpu')):.2f} %")
+    cpu_line = cli_line(params_cpu, torch.device("cpu"))
     card_line = proc.stdout.strip().splitlines()[-1]
     check(card_line == cpu_line, f"cli predict on the card {card_line!r} vs the CPU port {cpu_line!r}")
     out.update(checkpoint_version=version, save_s=save_s, load_s=load_s, cli_subprocess_s=cli_s,
@@ -989,6 +1000,163 @@ def phase_train_kernels(peaks: dict, seed: int, dev: torch.device) -> dict:
     return {"stump_histograms": [stump], "node_histograms": nodes}
 
 
+def run_cli(argv: list, timeout: int = 600) -> tuple:
+    """``python -m machine_learning_replications_tpu_torch *argv`` in a
+    fresh process on the card from the checkout's root: ``(completed
+    process, wall seconds)``; a non-zero exit fails the script."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch", *argv],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli {argv[0]} on the card: {proc.stderr[-2000:]}")
+    return proc, seconds
+
+
+def x_events(trace: dict) -> list:
+    """The complete (``ph: "X"``) events of a Chrome trace: the spans."""
+    return [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+
+
+def check_observed_train(records: list, events: list, launches: dict) -> dict:
+    """``cli train --trace-dir --journal``'s journal and trace: the manifest
+    first, naming the card; at least 6 ``stage_start``; ``run_done`` last,
+    with graph captures and the kernel launches of the in-process fit of the
+    same cohort (``launches``); every ``stage:*`` span inside ``train``. The
+    git sha is not checked: a copy of the repo without ``.git`` has none."""
+    man, kinds = records[0], [r["kind"] for r in records[1:]]
+    check(man["kind"] == "manifest" and man["command"] == "train", f"manifest first: {man}")
+    check(man.get("device") == torch.cuda.get_device_name(0), f"the card in the manifest: {man}")
+    check(kinds.count("stage_start") >= 6, f"at least 6 stage_start: {kinds}")
+    check(kinds[-1] == "run_done", f"run_done last: {kinds[-3:]}")
+    done = records[-1]
+    journaled = done["torch_kernel_launches_total"]
+    check(done["torch_graph_captures_total"] > 0, f"graph captures in run_done: {done}")
+    check(all(journaled.get(k, 0) == launches[k] for k in ("stump_histograms", "node_histograms")),
+          f"run_done's launches {journaled} equal the in-process fit's {launches}")
+    root = next(e for e in events if e["name"] == "train")
+    stages = [e for e in events if e["name"].startswith("stage:")]
+    check(stages and all(root["ts"] <= e["ts"] and e["ts"] + e["dur"] <= root["ts"] + root["dur"]
+                         for e in stages), "every stage:* span inside the train span")
+    return {"stage_starts": kinds.count("stage_start"), "run_done": done,
+            "manifest_device": man.get("device"), "manifest_versions": man["versions"],
+            "train_span_s": root["dur"] / 1e6,
+            "stage_spans_s": {e["name"]: e["dur"] / 1e6 for e in stages},
+            "stage_done_s": {r["stage"]: r["seconds"] for r in records
+                             if r["kind"] == "stage_done"}}
+
+
+def cli_line(params, dev) -> str:
+    """The line ``cli predict`` prints for the example patient under ``params``."""
+    from machine_learning_replications_tpu_torch import cli
+    from machine_learning_replications_tpu_torch.data.examples import patient_row
+
+    prob = cli.predict_proba1(params, patient_row(), dev)
+    return f"Probability of progressive HF is: {100.0 * prob:.2f} %"
+
+
+def phase_cli(rows: int, seed: int, dev) -> dict:
+    """The rest of the reference CLI on the card. ``cli sweep --synthetic
+    rows --save DIR`` in-process on the default grid (launch counts from 0,
+    read right after) against ``cv_sweep`` through the plain version on the
+    same imputed rows; ``cli predict --model DIR`` in a subprocess against
+    the saved forest's line. Then ``cli import-sklearn`` of the committed
+    fixture, ``predict --model`` on the import and ``predict --pkl`` on the
+    fixture (subprocesses on the card), each line equal to the CPU port's,
+    and the imported ensemble card against CPU on a ``[64, 17]`` batch."""
+    import contextlib
+    import io
+    import tempfile
+
+    from machine_learning_replications_tpu_torch import cli
+    from machine_learning_replications_tpu_torch.persist import checkpoint, sklearn_import
+
+    out = {"phase": "cli", "rows": rows}
+    scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    scfg = SweepConfig()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        saved = f"{tmp}/sweep_model"
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        cuda_histogram.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["sweep", "--synthetic", str(rows), "--seed", str(seed), "--save", saved])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = dict(cuda_histogram.LAUNCHES)
+        check(rc == 0, "cli sweep exits 0")
+        check(launches["node_histograms"] > 0, f"cli sweep launched the node kernel: {launches}")
+        lines = buf.getvalue().strip().splitlines()
+        header = [int(t) for t in lines[0].replace("m=", " ").split()[1:]]
+        check(header == list(scfg.n_estimators_grid) and len(lines) == 2 + len(scfg.max_depth_grid),
+              f"the default grid printed: {lines}")
+        grid = np.array([[float(t) for t in ln.split()[1:]] for ln in lines[1:-1]])
+        depths = [int(ln.split()[0]) for ln in lines[1:-1]]
+        best = lines[-1].split()
+        best_m, best_d = int(best[1].split("=")[1]), int(best[2].split("=")[1])
+
+        # The plain version on the same imputed develop rows.
+        X, y, _ = make_cohort(n=2 * rows, seed=seed, missing_rate=0.03)
+        Xd, yd = X[:rows], y[:rows]
+        del X, y
+        _, Ximp = knn_impute.fit_transform(Xd, device=dev)
+        X17 = np.ascontiguousarray(Ximp.cpu().numpy()[:, selected_indices()])
+        del Ximp
+        t0 = time.perf_counter()
+        plain = sweep.cv_sweep(X17, yd, scfg, GBDTConfig(histogram_backend="xla"), device=dev)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(depths == list(scfg.max_depth_grid), f"depth rows {depths}")
+        diff = float(np.abs(grid - plain.mean_auc).max())
+        check(bool(np.isfinite(plain.fold_auc).all()) and grid.shape == plain.mean_auc.shape,
+              "finite mean-AUC grids of one shape")
+        check(diff <= 0.005, f"cli sweep's grid within 0.005 of the plain sweep's: {diff}")
+        di, ei = scfg.max_depth_grid.index(best_d), scfg.n_estimators_grid.index(best_m)
+        best_gap = plain.best_mean_auc - float(plain.mean_auc[di, ei])
+        check(best_gap <= 0.005, f"the best: cell within 0.005 of the plain best: {best_gap}")
+
+        params = checkpoint.load_model(saved, device="cpu")
+        check(isinstance(params, tree.TreeEnsembleParams) and params.max_depth == best_d
+              and params.feature.shape[0] == best_m, "the saved model is the best cell's forest")
+        proc, predict_s = run_cli(["predict", "--model", saved])
+        want = cli_line(params, torch.device("cpu"))
+        got = proc.stdout.strip().splitlines()[-1]
+        check(got == want, f"cli predict on the sweep's save {got!r} vs {want!r}")
+        out.update(sweep_s=sweep_s, plain_sweep_s=plain_s, launches=launches,
+                   grid=grid.tolist(), grid_plain=plain.mean_auc.tolist(),
+                   grid_max_abs_diff=diff, best=[best_d, best_m, float(best[-1].split("=")[1])],
+                   best_plain=[plain.best_max_depth, plain.best_n_estimators,
+                               plain.best_mean_auc],
+                   predict_saved_s=predict_s, predict_saved_line=got)
+
+        # The committed sklearn-layout pickle: import, then both predict routes.
+        fixture = str(Path(sklearn_import.__file__).resolve().parent / "testdata"
+                      / "stacking_small.pkl")
+        imported = f"{tmp}/imported"
+        _, import_s = run_cli(["import-sklearn", "--pkl", fixture, "--out", imported])
+        by_model, model_s = run_cli(["predict", "--model", imported])
+        by_pkl, pkl_s = run_cli(["predict", "--pkl", fixture])
+    cpu = sklearn_import.import_stacking(sklearn_import.decode_pickle(fixture), device="cpu")
+    want = cli_line(cpu, torch.device("cpu"))
+    lines = [p.stdout.strip().splitlines()[-1] for p in (by_model, by_pkl)]
+    check(lines == [want, want], f"predict --model / --pkl on the card {lines} vs the CPU {want!r}")
+    card = sklearn_import.import_stacking(sklearn_import.decode_pickle(fixture), device=dev)
+    rng = np.random.default_rng(seed + 8)
+    Xb = rng.normal(size=(64, 17))
+    Xb[:, :10] = (Xb[:, :10] > 0.3).astype(float)
+    p = stacking.predict_proba(card, Xb, device=dev).cpu()
+    p_cpu = stacking.predict_proba(cpu, Xb, device="cpu")
+    err = (p - p_cpu).abs()
+    check(bool((err <= 1e-8 + 1e-5 * p_cpu.abs()).all()),
+          f"imported ensemble card vs CPU at (1e-5, 1e-8): max abs err {err.max()}")
+    out.update(import_s=import_s, predict_model_s=model_s, predict_pkl_s=pkl_s,
+               import_lines=lines, import_max_abs_err_vs_cpu=err.max().item())
+    emit(out)
+    return launches
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got − want| over the tensor's scale (its largest |want|)."""
     got, want = got.detach().cpu().double(), want.detach().cpu().double()
@@ -1018,15 +1186,13 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
     profile of one warm fit and the SVC solves' steps; held to the same fit
     by the CPU port (masks, donors, forests but for a tie, every member and
     the meta-LR within 1e-6 relative, select-half p1 within 1e-6, AUC within
-    0.005); ``cli train`` then ``cli predict`` in subprocesses on the card;
-    then the scaled fit on ``scaled_rows`` develop rows of
+    0.005); ``cli train --trace-dir --journal`` then ``cli predict`` in
+    subprocesses on the card (``check_observed_train``); then the scaled fit on ``scaled_rows`` develop rows of
     ``make_cohort(2 · scaled_rows)``, float32, once. Returns each fit's
     launch counts by its develop rows."""
     import tempfile
 
-    from machine_learning_replications_tpu_torch import cli
     from machine_learning_replications_tpu_torch.config import ExperimentConfig
-    from machine_learning_replications_tpu_torch.data.examples import patient_row
     from machine_learning_replications_tpu_torch.persist import checkpoint
     from machine_learning_replications_tpu_torch.utils import metrics
 
@@ -1045,7 +1211,24 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
           f"one stump launch per stage of the GBDT member: {launches}")
     check(launches["node_histograms"] == cfg.gbdt.n_estimators * cfg.gbdt.max_depth,
           f"one node launch per level of the 5 fold fits together: {launches}")
-    warm = [fit_pipeline_timed(Xd, yd, cfg, dev) for _ in range(3)]
+    # Three warm fits, the last under a span tracer: each stage:* span
+    # against the fit's own stage_seconds. The stages are timed by their
+    # spans, so this holds only that the trace and stage_seconds are one
+    # interval; that span exit waits for the card is checked by the card
+    # test test_span_waits_for_a_graph_replayed_solver_block.
+    warm = [fit_pipeline_timed(Xd, yd, cfg, dev) for _ in range(2)]
+    tracer = spans.Tracer(process_name="chip_smoke fit_pipeline")
+    spans.set_tracer(tracer)
+    try:
+        warm.append(fit_pipeline_timed(Xd, yd, cfg, dev))
+    finally:
+        spans.set_tracer(None)
+    stage_spans = {e["name"][len("stage:"):]: e["dur"] / 1e6 for e in x_events(tracer.export())
+                   if e["name"].startswith("stage:")}
+    stage_secs = warm[-1][1]["stage_seconds"]
+    check(set(stage_spans) == set(stage_secs), f"a span per stage: {stage_spans} {stage_secs}")
+    span_gap = max(abs(stage_spans[k] - stage_secs[k]) for k in stage_secs)
+    check(span_gap <= 1e-3, f"stage spans within 1e-3 s of stage_seconds: {span_gap}")
     prof = profile_call(lambda: fit_pipeline_timed(Xd, yd, cfg, dev)[2])
     t0 = time.perf_counter()
     cpu, cpu_info = pipeline.fit_pipeline(Xd, yd, cfg, device="cpu")
@@ -1075,32 +1258,34 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
     out.update(launches=launches, cold_s=cold, warm_s=statistics.median(w[2] for w in warm),
                warm_runs_s=[w[2] for w in warm], stage_seconds_cold=info["stage_seconds"],
                stage_seconds_warm=[w[1]["stage_seconds"] for w in warm],
+               traced_warm_stage_spans_s=stage_spans, traced_stage_span_max_gap_s=span_gap,
                svc_solves=svc_solves(info), profile_warm_fit=prof, cpu_port_s=cpu_s,
                cpu_stage_seconds=cpu_info["stage_seconds"], member_rel_err=errs,
                p1_max_abs_err=p1_err, auc=auc, auc_cpu=auc_cpu, auc_line=auc_line,
                n_selected=info["n_selected"], alpha_=info["selection"]["alpha_"], **agree)
 
-    # cli train on the card (its own process), then cli predict on what it saved.
+    # cli train on the card (its own process, traced and journaled), then cli
+    # predict on what it saved.
     scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         model = f"{tmp}/model"
         runs = {}
         for name, argv in (("train", ["train", "--synthetic", str(n), "--seed", str(seed),
-                                      "--save", model]),
+                                      "--save", model, "--trace-dir", f"{tmp}/trace",
+                                      "--journal", f"{tmp}/journal.jsonl"]),
                            ("predict", ["predict", "--model", model])):
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch",
-                                   *argv], capture_output=True, text=True, timeout=600,
-                                  cwd=Path(__file__).resolve().parent)
-            runs[name] = (proc, time.perf_counter() - t0)
-            check(proc.returncode == 0, f"cli {name} on the card: {proc.stderr[-2000:]}")
+            runs[name] = run_cli(argv)
         saved = checkpoint.load_model(model, device="cpu")
+        with open(f"{tmp}/journal.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        with open(f"{tmp}/trace/trace.json") as f:
+            trace_events = x_events(json.load(f))
+    out["cli_train_observed"] = check_observed_train(records, trace_events, launches)
     train_lines = runs["train"][0].stdout.strip().splitlines()
     check(train_lines[-1] == auc_line,
           f"cli train's line {train_lines[-1]!r} vs the in-process card fit's {auc_line!r}")
-    cpu_line = (f"Probability of progressive HF is: "
-                f"{100.0 * cli.predict_proba1(saved, patient_row(), torch.device('cpu')):.2f} %")
+    cpu_line = cli_line(saved, torch.device("cpu"))
     card_line = runs["predict"][0].stdout.strip().splitlines()[-1]
     check(card_line == cpu_line, f"cli predict on the card {card_line!r} vs the CPU port "
                                  f"{cpu_line!r}")
@@ -1178,6 +1363,8 @@ def main(argv=None) -> int:
     runs.append(phase_sweep(args.sweep_rows, args.seed, dev))
     runs.append(phase_serve(gbdt_params, X17, args.seed, dev))
     runs.append(phase_predict(gbdt_params, X17, args.seed, dev))
+    torch.cuda.empty_cache()
+    runs.append(phase_cli(args.sweep_rows, args.seed, dev))
     torch.cuda.empty_cache()
     per_fit = phase_train_pipeline(args.seed, SCALED_ROWS, dev)
     runs.extend(per_fit.values())

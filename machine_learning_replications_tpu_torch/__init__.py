@@ -13,8 +13,10 @@ depth-1 fits' stump histograms and the level-wise grower's node
 histograms) lives in ``ops/csrc/histogram.cu`` and is built with ``nvcc``
 on first use (``ops/cuda_histogram.py``). ``python -m
 machine_learning_replications_tpu_torch train`` fits the reference ensemble
-end to end and ``predict --model DIR`` scores one patient through a port
-checkpoint (``cli.py``).
+end to end, ``predict`` scores one patient through a port checkpoint or a
+sklearn pickle, ``sweep`` runs the GBDT member's CV grid and
+``import-sklearn`` converts a sklearn pickle (``cli.py``); ``--trace-dir``
+and ``--journal`` record a run (``obs/``).
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from machine_learning_replications_tpu_torch.obs import torchmon
+
 
 def pin_matmul_precision() -> None:
     """Full-precision float32 products everywhere (no TF32)."""
@@ -65,7 +67,6 @@ def synchronize(dev: torch.device) -> None:
 
 
 def to_host(a) -> np.ndarray:
-    """A tensor on any device, or anything array-like, as a host numpy array."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+    """A tensor on any device, or anything array-like, as a host numpy array
+    (bytes from the card count as d2h in ``obs.torchmon``)."""
+    return torchmon.device_get(a)

@@ -33,7 +33,9 @@ Dispatch: a wrapper given CPU tensors computes the plain PyTorch version
 CUDA tensors it launches the kernel or raises. A failed build or launch
 propagates, never falls back. ``LAUNCHES`` counts, per wrapper, the kernel
 launches it made (nothing else), so a run can show that its main path went
-through the kernel.
+through the kernel; each launch and each build also counts in
+``obs.torchmon``'s ``torch_kernel_launches_total{kernel}`` and
+``torch_kernel_builds_total`` / ``torch_kernel_build_seconds_total``.
 """
 
 from __future__ import annotations
@@ -45,10 +47,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
+from machine_learning_replications_tpu_torch.obs import torchmon
 from machine_learning_replications_tpu_torch.ops import histogram
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "histogram.cu"
@@ -97,7 +101,9 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    torchmon.record_kernel_build(time.perf_counter() - t0)
     build_log.append(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -256,6 +262,7 @@ def _launch(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.
             msg = lib.histogram_error_string(code).decode()
             raise RuntimeError(f"histogram kernel launch failed ({code}): {msg}")
     LAUNCHES[counter] += 1
+    torchmon.record_launch(counter)
     return out
 
 

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from machine_learning_replications_tpu_torch.obs import torchmon
+
 
 def _host_dtype(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
@@ -50,7 +52,8 @@ def run_blocks(block, n_blocks: int, running, device: torch.device) -> None:
     also warms cuBLAS there), the block is then captured once into a CUDA
     graph and replayed: one launch per block where eager PyTorch pays one
     per operation (a dual step's projection alone is 64 bisection steps).
-    The replayed kernels are the eager ones, so the numbers are too."""
+    The replayed kernels are the eager ones, so the numbers are too. Each
+    capture counts in ``torch_graph_captures_total`` (``obs.torchmon``)."""
     replay = block
     first = 0
     if device.type == "cuda" and n_blocks > 1 and running():
@@ -64,6 +67,7 @@ def run_blocks(block, n_blocks: int, running, device: torch.device) -> None:
                 block()
             finally:
                 graph.capture_end()
+        torchmon.record_graph_capture()
         torch.cuda.current_stream(device).wait_stream(side)
         replay, first = graph.replay, 1
     for _ in range(first, n_blocks):

@@ -48,6 +48,7 @@ from machine_learning_replications_tpu_torch.device import resolve_device
 from machine_learning_replications_tpu_torch.models import (
     knn_impute, linear, pipeline, scaler, stacking, svm, tree,
 )
+from machine_learning_replications_tpu_torch.obs import journal, torchmon
 from machine_learning_replications_tpu_torch.persist.atomicio import fsync_json_dump
 
 FORMAT = 1
@@ -162,7 +163,7 @@ def _decode(node: dict, arrays, dev: torch.device) -> Any:
             raise CheckpointIntegrityError(
                 f"tensor {spec['key']!r} is {a.dtype}{list(a.shape)}, the sidecar says "
                 f"{spec['dtype']}{spec['shape']}")
-        return torch.as_tensor(a, device=dev)
+        return torchmon.device_put(a, dev)
     if "mapping" in node:
         return {k: _decode(v, arrays, dev) for k, v in node["mapping"].items()}
     if "seq" in node:
@@ -176,11 +177,18 @@ def _decode(node: dict, arrays, dev: torch.device) -> Any:
 def save_model(path: "str | os.PathLike", params: Any) -> int:
     """Publish ``params`` (a ``PipelineParams``, ``StackingParams`` or
     ``TreeEnsembleParams``) at ``path`` atomically; a checkpoint already
-    there becomes the last-known-good. Returns the new version."""
+    there becomes the last-known-good. Journals ``checkpoint_publish``.
+    Returns the new version."""
     family = type(params).__name__
     if family not in FAMILIES:
         raise TypeError(f"a checkpoint holds one of {FAMILIES}, not {family}")
-    return _publish(path, params, family)
+    return _publish_journaled(path, params, family)
+
+
+def _publish_journaled(path: "str | os.PathLike", params: Any, family: str) -> int:
+    version = _publish(path, params, family)
+    journal.event("checkpoint_publish", path=os.path.abspath(os.fspath(path)), version=version)
+    return version
 
 
 def _publish(path: "str | os.PathLike", params: Any, family: str) -> int:
@@ -283,8 +291,9 @@ class SimulatedInterrupt(RuntimeError):
 
 
 def save_tree(path: "str | os.PathLike", tree: Any) -> int:
-    """Publish an arbitrary encodable tree at ``path`` atomically."""
-    return _publish(path, tree, TREE_FAMILY)
+    """Publish an arbitrary encodable tree at ``path`` atomically (a stage
+    output: journaled as ``checkpoint_publish``, as ``save_model``)."""
+    return _publish_journaled(path, tree, TREE_FAMILY)
 
 
 def load_tree(path: "str | os.PathLike", *, device=None) -> Any:
@@ -321,7 +330,7 @@ def save_step(directory: "str | os.PathLike", step: int, carry: Any, *,
     during a save."""
     directory = os.path.abspath(os.fspath(directory))
     os.makedirs(directory, exist_ok=True)
-    save_tree(_step_path(directory, step), carry)
+    _publish(_step_path(directory, step), carry, TREE_FAMILY)
     for old in _steps(directory)[max_to_keep:]:
         shutil.rmtree(_step_path(directory, old), ignore_errors=True)
         shutil.rmtree(lastgood_path(_step_path(directory, old)), ignore_errors=True)
@@ -354,8 +363,12 @@ class StageCheckpointer:
     without a readable fingerprint, is refused. A stage whose checkpoint
     fails to load (torn or corrupt files) is discarded and recomputed.
     ``timings`` (a dict) receives each stage's seconds, its queued device
-    work included. ``_interrupt_after`` is the test hook that raises
-    ``SimulatedInterrupt`` right after the named stage is durable."""
+    work included. Every stage reports through ``obs.journal.stage_scope``
+    (a ``stage:<name>`` span, ``stage_start``/``stage_done``/``stage_error``
+    journaled, the JAX package's stderr lines, " (checkpointed)" when
+    durable); a restored stage journals ``checkpoint_restore``, a discarded
+    one ``checkpoint_corrupt``. ``_interrupt_after`` is the test hook that
+    raises ``SimulatedInterrupt`` right after the named stage is durable."""
 
     def __init__(self, root: "str | os.PathLike | None", *, device=None,
                  _interrupt_after: str | None = None, fingerprint: str | None = None,
@@ -403,28 +416,28 @@ class StageCheckpointer:
     def run(self, name: str, compute):
         """The stage's output: restored if previously completed, else
         ``compute()`` then published (before the interrupt hook fires)."""
-        import time
-
         from machine_learning_replications_tpu_torch.device import synchronize
+        from machine_learning_replications_tpu_torch.utils.trace import stage_say
 
         if self.completed(name):
             path = os.path.join(self.root, name)
             try:
                 out = load_tree(path, device=self.device)
-                print(f"stage {name!r} restored from checkpoint", file=sys.stderr)
+                stage_say(f"stage {name!r} restored from checkpoint")
+                journal.event("checkpoint_restore", stage=name)
                 return out
             except (CheckpointIntegrityError, OSError, ValueError, KeyError) as exc:
                 shutil.rmtree(path, ignore_errors=True)
-                print(f"stage {name!r}: checkpoint corrupt ({type(exc).__name__}) — "
-                      "discarded, recomputing", file=sys.stderr)
-        t0 = time.perf_counter()
-        out = compute()
-        synchronize(self.device)
-        if self.root is not None:
-            save_tree(os.path.join(self.root, name), out)
-        self.timings[name] = time.perf_counter() - t0
-        print(f"stage {name!r} done in {self.timings[name]:.1f}s"
-              + (" (checkpointed)" if self.root is not None else ""), file=sys.stderr)
+                stage_say(f"stage {name!r}: checkpoint corrupt ({type(exc).__name__}) — "
+                          "discarded, recomputing")
+                journal.event("checkpoint_corrupt", stage=name, error=type(exc).__name__)
+        with journal.stage_scope(name, done_suffix="" if self.root is None
+                                 else " (checkpointed)") as stage:
+            out = compute()
+            synchronize(self.device)
+            if self.root is not None:
+                save_tree(os.path.join(self.root, name), out)
+        self.timings[name] = stage.seconds
         if self._interrupt_after == name:
             raise SimulatedInterrupt(f"after stage {name!r}")
         return out

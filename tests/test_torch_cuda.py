@@ -493,3 +493,85 @@ def test_fit_pipeline_card_matches_cpu(cuda_device):
     p_card = pipeline.pipeline_predict_proba1(card, X[200:], device=cuda_device).cpu()
     p_cpu = pipeline.pipeline_predict_proba1(cpu, X[200:], device="cpu")
     torch.testing.assert_close(p_card, p_cpu, rtol=0, atol=1e-6)
+
+
+def test_span_waits_for_a_graph_replayed_solver_block(cuda_device):
+    """A span around solver blocks replayed as a CUDA graph
+    (``ops.steps.run_blocks``, captured on a side stream) lasts at least as
+    long as the blocks' CUDA-event time: span exit synchronizes the device,
+    not one stream. The host check here never syncs, so without that wait
+    the span would close while the card still works."""
+    from machine_learning_replications_tpu_torch.obs import spans
+    from machine_learning_replications_tpu_torch.ops.steps import run_blocks
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    A = torch.randn(2048, 2048, device=cuda_device, generator=gen) / 64
+    x = torch.randn(2048, 512, device=cuda_device, generator=gen)
+
+    def block():
+        for _ in range(8):
+            x.copy_(torch.tanh(A @ x))
+
+    torch.cuda.synchronize()
+    tr = spans.Tracer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with tr.span("solve") as sp:
+        start.record()
+        run_blocks(block, 40, lambda: True, cuda_device)
+        end.record()
+        sp.block(x)
+    end.synchronize()
+    event_ms = start.elapsed_time(end)
+    span_ms = next(e for e in tr.export()["traceEvents"] if e.get("name") == "solve")["dur"] / 1e3
+    assert event_ms > 1.0 and span_ms >= event_ms, (span_ms, event_ms)
+
+
+def test_torchmon_counts_captures_and_launches_on_the_card(cuda_device):
+    from machine_learning_replications_tpu_torch.obs import torchmon
+    from machine_learning_replications_tpu_torch.ops.steps import run_blocks
+
+    torchmon.install()
+    before = torchmon.totals()
+    x = torch.ones(64, device=cuda_device)
+
+    def block():
+        x.mul_(1.0001)
+
+    run_blocks(block, 3, lambda: True, cuda_device)
+    args = _stump_inputs(7, 4096, 17, 256, np.uint8, np.float32, cuda_device)
+    cuda_histogram.stump_histograms_cuda(*args, 256)
+    node = torch.zeros(4096, dtype=torch.int32, device=cuda_device)
+    cuda_histogram.node_histograms_cuda(args[0], node, args[1], args[2], 1, 256)
+    torchmon.device_get(x)
+    torch.cuda.synchronize()
+    after = torchmon.totals()
+    assert after["torch_graph_captures_total"] == before["torch_graph_captures_total"] + 1
+    for k in ("stump_histograms", "node_histograms"):
+        assert after["torch_kernel_launches_total"][k] == \
+            before["torch_kernel_launches_total"].get(k, 0) + 1
+    assert after["torch_transfer_bytes_total"]["d2h"] >= \
+        before["torch_transfer_bytes_total"].get("d2h", 0) + 256
+
+
+def test_committed_sklearn_fixture_imports_on_the_card(cuda_device):
+    """The committed sklearn-layout pickle decodes without sklearn and
+    imports onto the card; its stacked probabilities equal the CPU import's
+    at (1e-5, 1e-8)."""
+    import sys
+
+    from machine_learning_replications_tpu_torch.models import stacking
+    from machine_learning_replications_tpu_torch.persist import sklearn_import
+
+    path = sklearn_import.__file__.replace("sklearn_import.py", "testdata/stacking_small.pkl")
+    had_sklearn = "sklearn" in sys.modules
+    obj = sklearn_import.decode_pickle(path)
+    assert ("sklearn" in sys.modules) == had_sklearn         # the decoder never imports it
+    card = sklearn_import.import_stacking(obj, device=cuda_device)
+    cpu = sklearn_import.import_stacking(obj, device="cpu")
+    assert card.gbdt.threshold.dtype == torch.float64 and card.meta.coef.is_cuda
+    rng = np.random.default_rng(29)
+    X = rng.normal(size=(64, 17))
+    X[:, :10] = (X[:, :10] > 0.3).astype(float)
+    p = stacking.predict_proba(card, X, device=cuda_device).cpu()
+    torch.testing.assert_close(p, stacking.predict_proba(cpu, X, device="cpu"), rtol=1e-5,
+                               atol=1e-8)
