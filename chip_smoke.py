@@ -48,6 +48,23 @@ per phase:
            a subprocess on the card against the CPU port's line, and
            ``pipeline_predict_proba1_contract`` on [1, 17] and [100000, 17]
            contract rows, card against CPU, donors included;
+  serve_http  serving on the card (``serve/``): the bucketed engine of the
+           serve phase's ensemble and of the predict phase's full pipeline,
+           one CUDA graph per bucket of ``DEFAULT_BUCKETS`` (warmup seconds,
+           exactly one capture per bucket by ``trace_counts`` and
+           ``torch_graph_captures_total``, every lane of every bucket equal
+           to the eager oracle on the card and to the CPU port, latency per
+           bucket beside the eager routes); then ``make_server(...,
+           device=dev)`` on a free port: 200 sequential requests pinned to
+           the device path, 200 on the host path, a closed-loop burst of 32
+           keep-alive clients x 50 (every reply equal to its version's
+           oracle, none but 200, the breaker closed), ``/admin/deploy`` of
+           the pipeline checkpoint during a second burst (the version flips,
+           the new engine captures while the old one replays), a fault drill
+           (``engine.compute:raise@count=3`` through ``/debug/faults``: three
+           500s, 503 + Retry-After, recovery on 7 fresh captures with the
+           same answer) and ``cli serve --model`` in a subprocess (ready,
+           one reply equal to ``cli predict``'s line, SIGTERM, exit 0);
   train_pipeline  the reference's ``train`` route: ``fit_pipeline`` (1-NN
            impute, LassoCV top-17, the stacking fit with its 5-fold CV, the
            quality profile) on the CLI's 713 + 713 cohort halves, float64,
@@ -81,10 +98,10 @@ splitter's shapes: int32 bins, B = the cohort's unique values per column
 level at 713 and 50,000 rows).
 
 Launch counts are set to 0 just before each of train, train_depth,
-fit_exact, sweep, serve, predict, cli (its in-process ``cli sweep``) and
-train_pipeline (its reference-size fit and its scaled fit) and read just
-after; each kernel entry must have launched on that path, and none on the
-predict path.
+fit_exact, sweep, serve, predict, serve_http, cli (its in-process ``cli
+sweep``) and train_pipeline (its reference-size fit and its scaled fit) and
+read just after; each kernel entry must have launched on that path, and none
+on the predict and serve_http paths.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -96,6 +113,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -919,6 +937,375 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     return out["launches"]
 
 
+def median_ms(fn, reps: int = 20, warm: int = 3) -> tuple:
+    """``(median ms, all ms)`` of ``reps`` calls of ``fn`` (host clock, each
+    call ending in a card synchronize), after ``warm`` untimed calls."""
+    runs = []
+    for i in range(warm + reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warm:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs), runs
+
+
+def replay_ms(eng, b: int, reps: int = 20) -> float:
+    """Median card time of one replay of bucket ``b``'s graph, by CUDA events
+    on the engine's stream (its copies and the host excluded). Reaches into
+    the engine's captures: a measurement, not a serving path."""
+    g, times = eng._graphs[b], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with eng._lock, torch.cuda.stream(eng._stream):
+            start.record()
+            g.graph.replay()
+            end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def quantile(xs: list, q: float) -> float:
+    return float(np.quantile(np.asarray(xs, np.float64), q))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Client:
+    """One keep-alive HTTP/1.1 connection (``http.client``)."""
+
+    def __init__(self, port: int) -> None:
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+    def call(self, method: str, path: str, body=None, headers=None) -> tuple:
+        """``(status, parsed JSON, headers, seconds)``."""
+        data = None if body is None else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        self.conn.request(method, path, body=data,
+                          headers={"Content-Type": "application/json", **(headers or {})})
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        seconds = time.perf_counter() - t0
+        if resp.getheader("Connection", "").lower() == "close":
+            self.conn.close()
+        return resp.status, json.loads(raw or b"{}"), dict(resp.getheaders()), seconds
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def burst(port: int, patients: list, clients: int, per_client: int, headers=None,
+          during=None) -> dict:
+    """A closed loop of ``clients`` keep-alive clients, each sending
+    ``per_client`` ``/predict`` requests back to back (patient ``i`` of the
+    pool in turn). ``during`` runs on the main thread once the clients
+    started; with it, each client keeps sending until ``during`` returned
+    and then ``per_client // 4`` more, so the traffic spans it. Returns every
+    reply ``(patient index, status, body, headers, seconds)``, the wall
+    seconds and what ``during`` returned."""
+    import threading
+
+    replies, lock, done = [], threading.Lock(), threading.Event()
+    if during is None:
+        done.set()
+
+    def run(c):
+        cl = Client(port)
+        k, after = 0, 0 if during is not None else per_client
+        try:
+            while k < per_client or not done.is_set() or after < per_client // 4:
+                i = (c * per_client + k) % len(patients)
+                st, body, hdrs, sec = cl.call("POST", "/predict", patients[i], headers)
+                with lock:
+                    replies.append((i, st, body, hdrs, sec))
+                k += 1
+                after += done.is_set()
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        extra = during() if during is not None else None
+    finally:
+        done.set()
+    for t in threads:
+        t.join()
+    return {"replies": replies, "seconds": time.perf_counter() - t0, "during": extra}
+
+
+def check_replies(replies: list, oracles: dict, what: str) -> dict:
+    """Every reply 200, and its probability equal to the eager oracle of the
+    version that computed it (``X-Model-Version``) on the card at
+    ``parity_tolerance`` and to the CPU port's at (1e-5, 1e-8)."""
+    bad = [r for r in replies if r[1] != 200]
+    check(not bad, f"{what}: {len(bad)} non-200 replies, e.g. {bad[:2]}")
+    worst = 0.0
+    for i, _, body, hdrs, _ in replies:
+        card, cpu, (rtol, atol) = oracles[hdrs.get("X-Model-Version")]
+        p = body["probability"]
+        for want, tol in ((card[i], (rtol, atol)), (cpu[i], (1e-5, 1e-8))):
+            check(abs(p - want) <= tol[1] + tol[0] * abs(want),
+                  f"{what}: reply {p} vs oracle {want} (patient {i})")
+        worst = max(worst, abs(p - card[i]))
+    return {"non_200": len(bad), "max_abs_err_vs_card_oracle": worst}
+
+
+def path_split(port: int) -> dict:
+    cl = Client(port)
+    try:
+        _, snap, _, _ = cl.call("GET", "/metrics?format=json")
+    finally:
+        cl.close()
+    fam = snap["runtime"]["serve_path_total"]
+    return {"snapshot": snap, "paths": {k.split("=")[-1].strip('"{}'): v for k, v in fam.items()}
+            if isinstance(fam, dict) else fam}
+
+
+def phase_serve_http(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
+    """Serving on the card (``serve/``): the bucketed engine's one CUDA graph
+    per bucket (warmup seconds, captures, every lane of every bucket held to
+    the eager oracle, latency per bucket beside the eager routes), then
+    ``make_server(..., device=dev)`` on a free port: 200 sequential requests
+    pinned to the device path and 200 on the host path, a closed-loop burst
+    of 32 keep-alive clients x 50 requests, ``/admin/deploy`` of the full
+    pipeline checkpoint during a second burst, a fault drill through
+    ``/debug/faults`` (breaker open, 503 + Retry-After, recovery on freshly
+    captured graphs), and ``cli serve --model`` in a subprocess. No hand
+    kernel lies on this path: the launch counts must stay 0."""
+    import signal
+    import tempfile
+
+    from machine_learning_replications_tpu_torch.data.examples import EXAMPLE_PATIENT
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+    from machine_learning_replications_tpu_torch.obs import torchmon
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+    from machine_learning_replications_tpu_torch.serve import engine, make_server
+
+    torchmon.install()
+    cuda_histogram.reset_launch_counts()
+    out = {"phase": "serve_http", "buckets": list(engine.DEFAULT_BUCKETS)}
+    params = serving_params(gbdt_params, X17, seed)
+    pipe = predict_params(gbdt_params, X17, seed, dev)
+    rng = np.random.default_rng(seed + 7)
+    pool = np.asarray(X17[rng.choice(X17.shape[0], 512, replace=False)], np.float64)
+
+    # -- the engine: one capture per bucket, every lane held to the oracle --
+    warm = {}
+    for name, p in (("stacking", params), ("pipeline", pipe)):
+        eng = engine.BucketedPredictEngine(p, device=dev)
+        c0 = torchmon.totals()["torch_graph_captures_total"]
+        t0 = time.perf_counter()
+        secs = eng.warmup()
+        total = time.perf_counter() - t0
+        captures = torchmon.totals()["torch_graph_captures_total"] - c0
+        check(eng.trace_counts == {b: 1 for b in engine.DEFAULT_BUCKETS},
+              f"{name}: one capture per bucket: {eng.trace_counts}")
+        check(captures == len(engine.DEFAULT_BUCKETS), f"{name}: {captures} graph captures")
+        rtol, atol = engine.parity_tolerance(p)
+        p_cpu = convert.params_to(p, "cpu")
+        lanes, lat, replay = {}, {}, {}
+        for b in engine.DEFAULT_BUCKETS:
+            Xb = pool[:b]
+            got = eng.predict(Xb)
+            want = engine.oracle_proba1(p, Xb)
+            want_cpu = engine.oracle_proba1(p_cpu, Xb)
+            check(got.shape == (b,) and bool(np.isfinite(got).all()), f"{name} b{b}: finite")
+            check(bool(np.allclose(got, want, rtol=rtol, atol=atol)),
+                  f"{name} b{b}: every lane equals the card oracle")
+            check(bool(np.allclose(got, want_cpu, rtol=1e-5, atol=1e-8)),
+                  f"{name} b{b}: every lane equals the CPU port")
+            lanes[b] = float(np.abs(got - want).max())
+            lat[b], _ = median_ms(lambda: eng.predict(Xb))
+            replay[b] = replay_ms(eng, b)
+
+        def one_predict():
+            t0 = time.perf_counter()
+            eng.predict(pool[:64])
+            return time.perf_counter() - t0
+
+        warm[name] = {"warmup_s_per_bucket": secs, "warmup_s": total, "captures": captures,
+                      "trace_counts": eng.trace_counts, "parity_tolerance": [rtol, atol],
+                      "max_abs_err_per_bucket": lanes, "predict_ms_median_per_bucket": lat,
+                      "replay_device_ms_median_per_bucket": replay,
+                      "profile_predict_64": profile_call(one_predict)}
+        del eng
+    out["engine"] = warm
+    X64 = pool[:64].astype(np.float32)
+    out["eager_stacking_64_ms"], _ = median_ms(
+        lambda: stacking.predict_proba(params, X64, device=dev))
+    out["eager_pipeline_1_ms"], _ = median_ms(
+        lambda: pipeline.pipeline_predict_proba1_contract(pipe, pool[:1], device=dev))
+
+    # -- the server ----------------------------------------------------------
+    patients = [{k: float(v) for k, v in zip(SELECTED_17, r)} for r in pool]
+    oracle = {}
+    scratch = cuda_histogram.BUILD_DIR.parent
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = f"{tmp}/model"
+        check(checkpoint.save_model(path, params) == 1, "stacking checkpoint is version 1")
+        loaded, info = checkpoint.load_model_versioned(path, device=dev)
+        for p, version in ((loaded, "1"), (pipe, "2")):
+            oracle[version] = (engine.oracle_proba1(p, pool),
+                               engine.oracle_proba1(convert.params_to(p, "cpu"), pool),
+                               engine.parity_tolerance(p))
+        port = free_port()
+        t0 = time.perf_counter()
+        handle = make_server(loaded, port=port, device=dev, host_path=True, fault_endpoint=True,
+                             admin_endpoint=True, model_version=info["version"],
+                             profile_dir=f"{tmp}/profiles").start_background()
+        out["make_server_s"] = time.perf_counter() - t0
+        try:
+            cl = Client(port)
+            seq = {}
+            for label, hdr in (("device", {"X-Serve-Path": "device"}), ("host", None)):
+                rep = []
+                for k in range(200):
+                    st, body, hdrs, sec = cl.call("POST", "/predict", patients[k], hdr)
+                    rep.append((k, st, body, hdrs, sec))
+                check(all(r[3]["X-Serve-Path"] == label for r in rep), f"every reply on {label}")
+                lat = [r[4] * 1e3 for r in rep]
+                seq[label] = {"requests": len(rep), "p50_ms": quantile(lat, 0.5),
+                              "p99_ms": quantile(lat, 0.99),
+                              **check_replies(rep, oracle, f"sequential {label}")}
+            cl.close()
+            out["sequential"] = seq
+            b1 = burst(port, patients, 32, 50)
+            lat = [r[4] * 1e3 for r in b1["replies"]]
+            snap = path_split(port)
+            out["burst"] = {"clients": 32, "per_client": 50, "requests": len(b1["replies"]),
+                            "seconds": b1["seconds"], "rps": len(b1["replies"]) / b1["seconds"],
+                            "p50_ms": quantile(lat, 0.5), "p99_ms": quantile(lat, 0.99),
+                            "paths": {h: sum(r[3]["X-Serve-Path"] == h for r in b1["replies"])
+                                      for h in ("host", "device")},
+                            "serve_path_total": snap["paths"],
+                            "batch_size": snap["snapshot"].get("batch_size"),
+                            "padding_waste": snap["snapshot"].get("padding_waste"),
+                            **check_replies(b1["replies"], oracle, "burst")}
+            cl = Client(port)
+            _, health, _, _ = cl.call("GET", "/healthz")
+            check(health["breaker"]["state"] == "closed" and health["ready"],
+                  f"breaker closed after the burst: {health['breaker']}")
+
+            # -- deploy the full pipeline during a second burst --------------
+            old_engine = handle.engine._engine
+            check(checkpoint.save_model(path, pipe) == 2, "pipeline checkpoint is version 2")
+
+            def deploy():
+                time.sleep(0.5)
+                dc = Client(port)
+                try:
+                    return dc.call("POST", "/admin/deploy", {"model": path})
+                finally:
+                    dc.close()
+
+            b2 = burst(port, patients, 16, 80, during=deploy)
+            st, body, _, dep_s = b2["during"]
+            check(st == 200 and body["deploy"]["result"] == "ok" and body["deploy"]["version"] == 2,
+                  f"deploy under load: {st} {body}")
+            versions = [r[3].get("X-Model-Version") for r in b2["replies"]]
+            check({"1", "2"} <= set(versions), f"the version flips in the replies: {set(versions)}")
+            new_engine = handle.engine._engine
+            check(new_engine is not old_engine and new_engine.trace_counts == {
+                b: 1 for b in engine.DEFAULT_BUCKETS}, "the deployed engine captured every bucket")
+            out["deploy"] = {"seconds": dep_s, "deploy_status": body["deploy"],
+                             "requests": len(b2["replies"]),
+                             "replies_by_version": {v: versions.count(v) for v in ("1", "2")},
+                             **check_replies(b2["replies"], oracle, "deploy burst")}
+
+            # -- fault drill ---------------------------------------------------
+            cl.close()                   # idle through the burst: the server reaped it
+            cl = Client(port)
+            pin = {"X-Serve-Path": "device"}
+            st, golden, _, _ = cl.call("POST", "/predict", patients[0], pin)
+            check(st == 200, "a reply before the drill")
+            cap0 = torchmon.totals()["torch_graph_captures_total"]
+            st, _, _, _ = cl.call("POST", "/debug/faults", {"arm": "engine.compute:raise@count=3"})
+            check(st == 200, "faults armed over HTTP")
+            codes, retry_after, t0 = [], None, time.perf_counter()
+            while time.perf_counter() - t0 < 60:
+                st, body, hdrs, _ = cl.call("POST", "/predict", patients[0], pin)
+                codes.append(st)
+                if st == 503:
+                    retry_after = hdrs.get("Retry-After")
+                if st == 200 and 503 in codes:
+                    break
+                time.sleep(0.01)
+            check(codes[:3] == [500, 500, 500] and retry_after is not None and int(retry_after) >= 1,
+                  f"breaker opens with 503 + Retry-After: {codes[:8]} {retry_after}")
+            check(codes[-1] == 200 and body["probability"] == golden["probability"],
+                  f"recovery with the same answer: {codes[-3:]}")
+            restarted = handle.engine._engine
+            check(restarted is not new_engine and restarted.trace_counts == {
+                b: 1 for b in engine.DEFAULT_BUCKETS}, "the restart captured fresh graphs")
+            recaptures = torchmon.totals()["torch_graph_captures_total"] - cap0
+            check(recaptures == len(engine.DEFAULT_BUCKETS), f"{recaptures} recaptures")
+            out["fault_drill"] = {"codes": {c: codes.count(c) for c in set(codes)},
+                                  "retry_after": retry_after,
+                                  "recovery_s": time.perf_counter() - t0,
+                                  "recaptures": recaptures}
+            # the same deploy with no traffic: what the burst's clients cost it
+            st, body, _, idle_s = cl.call("POST", "/admin/deploy", {"model": path})
+            check(st == 200 and body["deploy"]["result"] == "ok", f"idle deploy: {st} {body}")
+            out["deploy"]["idle_seconds"] = idle_s
+            cl.close()
+        finally:
+            handle.shutdown()
+
+        # -- cli serve in a subprocess ------------------------------------------
+        port = free_port()
+        env = {**os.environ, "MLR_TPU_PROGRESS": "0"}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "machine_learning_replications_tpu_torch", "serve",
+             "--model", path, "--port", str(port)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=Path(__file__).resolve().parent)
+        try:
+            while True:
+                check(proc.poll() is None, "cli serve exited early")
+                check(time.perf_counter() - t0 < 300, "cli serve ready within 300 s")
+                try:
+                    cl = Client(port)
+                    st, _, _, _ = cl.call("GET", "/readyz")
+                    cl.close()
+                    if st == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.25)
+            ready_s = time.perf_counter() - t0
+            cl = Client(port)
+            st, body, hdrs, _ = cl.call("POST", "/predict", dict(EXAMPLE_PATIENT))
+            cl.close()
+            check(st == 200, f"cli serve /predict: {st} {body}")
+            line, _ = run_cli(["predict", "--model", path], timeout=300)
+            line = line.stdout.strip().splitlines()[-1]
+            check(body["text"] == line, f"cli serve {body['text']!r} vs cli predict {line!r}")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            _, err = proc.communicate(timeout=120)
+        check(proc.returncode == 0, f"cli serve drains on SIGTERM with exit 0: {err[-2000:]}")
+        out["cli_serve"] = {"ready_s": ready_s, "probability": body["probability"],
+                            "model_version": hdrs.get("X-Model-Version"), "cli_predict": line}
+    out["launches"] = dict(cuda_histogram.LAUNCHES)
+    check(not any(out["launches"].values()), f"no hand kernel on the serve path: {out['launches']}")
+    emit(out)
+    return out["launches"]
+
+
 def fold_fit_inputs(rows: int, seed: int, dtype: torch.dtype, dev: torch.device):
     """The stacking CV's GBDT fold fits at ``rows`` develop rows, at their
     first tree level: the host bins of the 17 selected variables (256-bin
@@ -1363,6 +1750,8 @@ def main(argv=None) -> int:
     runs.append(phase_sweep(args.sweep_rows, args.seed, dev))
     runs.append(phase_serve(gbdt_params, X17, args.seed, dev))
     runs.append(phase_predict(gbdt_params, X17, args.seed, dev))
+    torch.cuda.empty_cache()
+    runs.append(phase_serve_http(gbdt_params, X17, args.seed, dev))
     torch.cuda.empty_cache()
     runs.append(phase_cli(args.sweep_rows, args.seed, dev))
     torch.cuda.empty_cache()

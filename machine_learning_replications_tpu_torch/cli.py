@@ -12,6 +12,10 @@
         [--folds K] [--save DIR] [--device cpu|cuda]
     python -m machine_learning_replications_tpu_torch import-sklearn \\
         --pkl PICKLE --out DIR [--device cpu|cuda]
+    python -m machine_learning_replications_tpu_torch serve \\
+        [--model DIR | --pkl PICKLE] [--host H] [--port P] [--buckets LADDER] \\
+        [serving, resilience, alerting flags as the JAX CLI's] \\
+        [--trace-dir DIR] [--journal JSONL] [--device cpu|cuda]
 
 ``train`` is ``train_ensemble_public.py``: it fits the full pipeline
 (impute → LassoCV top-17 → stacking ensemble → quality profile) on the
@@ -39,7 +43,15 @@ columns, prints the mean-AUC grid and the ``best:`` cell, and with
 sklearn pickle (no sklearn needed, no pickled code run) into a port
 checkpoint.
 
-``--trace-dir`` and ``--journal`` (``train``, ``predict``) write the run's
+``serve`` is the JAX CLI's micro-batched HTTP server (``/predict``,
+``/healthz``, ``/readyz``, ``/metrics``, ``/debug/*``, ``/admin/deploy``) on
+the port's engine: one CUDA graph per bucket on the card, the host fast
+path on the CPU, supervised, drained on SIGTERM. Like ``predict`` it needs
+``--model`` or ``--pkl``. Not ported yet (ROADMAP item 8b): ``--workers``
+above 1, ``--register``/``--advertise``, ``--no-aot`` and
+``--xla-intra-op-threads``.
+
+``--trace-dir`` and ``--journal`` (``train``, ``predict``, ``serve``) write the run's
 spans as a Chrome trace (``<dir>/trace.json``) and a JSONL journal (a
 manifest first, then stage and checkpoint events, ``run_done`` last, with
 the run's ``obs.torchmon`` totals). Every command runs on the card unless
@@ -93,16 +105,12 @@ def predict_proba1(params, x: np.ndarray, dev: torch.device) -> float:
     """P(class 1) of one contract row, routed by the checkpoint's family as
     the JAX ``cli predict`` routes it: a full pipeline embeds the row and
     imputes the 47 other variables; a bare GBDT (a sweep's refit) and a
-    stacked ensemble take the 17 contract columns as they are."""
-    from machine_learning_replications_tpu_torch.models import pipeline, stacking, tree
+    stacked ensemble take the 17 contract columns as they are, in the
+    parameters' dtype (``serve.engine.oracle_proba1``, the serving parity
+    oracle, is this route on many rows)."""
+    from machine_learning_replications_tpu_torch.serve.engine import oracle_proba1
 
-    if isinstance(params, pipeline.PipelineParams):
-        return float(pipeline.pipeline_predict_proba1_contract(params, x, device=dev)[0])
-    if isinstance(params, tree.TreeEnsembleParams):
-        xt = torch.as_tensor(x, device=dev).to(params.threshold.dtype)
-        return float(tree.predict_proba1(params, xt)[0])
-    xt = torch.as_tensor(x, device=dev).to(params.meta.coef.dtype)
-    return float(stacking.predict_proba1(params, xt, device=dev)[0])
+    return float(oracle_proba1(params, x, device=dev)[0])
 
 
 def _load_cohort(args, which: str):
@@ -246,6 +254,179 @@ def _run_predict(args, dev: torch.device) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Micro-batched HTTP inference serving (the JAX CLI's ``serve``)."""
+    dev = _device(args, "serve")
+    if args.workers > 1:
+        raise SystemExit(
+            "serve: --workers above 1 (pre-fork SO_REUSEPORT workers) is not "
+            "ported yet (ROADMAP item 8b): a fork after CUDA is initialised is "
+            "undefined; run one worker per process"
+        )
+    if not (args.model or args.pkl):
+        from machine_learning_replications_tpu_torch.persist import sklearn_import
+
+        raise SystemExit(f"serve: {sklearn_import.NO_DEFAULT_PKL}")
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    # The knobs that shape serving behaviour, for the manifest's config hash.
+    serve_cfg = json.dumps({
+        "buckets": list(buckets), "max_batch": args.max_batch,
+        "max_wait_ms": args.max_wait_ms, "max_queue": args.max_queue,
+        "request_timeout_s": args.request_timeout,
+        "warmup": not args.no_warmup,
+        "model": args.model, "pkl": args.pkl,
+        "slo_latency_ms": args.slo_latency_ms,
+        "slo_latency_target": args.slo_latency_target,
+        "slo_availability_target": args.slo_availability_target,
+        "no_slo": args.no_slo,
+        "trace_capacity": args.trace_capacity,
+        "tail_quantile": args.tail_quantile,
+        "profile_dir": args.profile_dir,
+        "no_quality": args.no_quality,
+        "drift_warn_psi": args.drift_warn_psi,
+        "drift_alert_psi": args.drift_alert_psi,
+        "supervise": not args.no_supervise,
+        "flush_deadline_s": args.flush_deadline_s,
+        "breaker_failures": args.breaker_failures,
+        "restart_backoff_s": args.restart_backoff_s,
+        "restart_backoff_max_s": args.restart_backoff_max_s,
+        "inject": sorted(args.inject or []),
+        "fault_endpoint": bool(args.inject or args.fault_endpoint),
+        "workers": args.workers,
+        "idle_timeout_s": args.idle_timeout,
+        "max_connections": args.max_connections,
+        "host_path": not args.no_host_path,
+        "host_workers": args.host_workers,
+        "replica_id": args.replica_id,
+        "admin_endpoint": args.admin_endpoint,
+        "history_interval_s": args.history_interval,
+        "alert_rules": args.alert_rules,
+        "no_alerts": args.no_alerts,
+        "incident_dir": args.incident_dir,
+        "device": str(dev),
+    }, sort_keys=True)
+    with _observed(args, "serve", config_json=serve_cfg):
+        return _run_serve(args, buckets, dev)
+
+
+def _load_alert_rules(path):
+    """Parse a ``--alert-rules`` JSON file, turning the rule engine's
+    validation errors into the CLI's usage-error exit."""
+    from machine_learning_replications_tpu_torch.obs import alerts
+
+    try:
+        return alerts.load_rules(path)
+    except (OSError, ValueError) as exc:
+        raise SystemExit(f"--alert-rules: {exc}")
+
+
+def _run_serve(args, buckets, dev: torch.device) -> int:
+    import gc
+    import signal
+    import threading
+
+    from machine_learning_replications_tpu_torch.obs import slo
+    from machine_learning_replications_tpu_torch.persist import load_inference_params
+    from machine_learning_replications_tpu_torch.resilience import faults
+    from machine_learning_replications_tpu_torch.serve import make_server
+
+    # Arm injections BEFORE the model loads or the engine warms: the
+    # engine.warmup faultpoint is part of the chaos surface.
+    for spec in args.inject or []:
+        try:
+            armed = faults.arm(spec)
+        except ValueError as exc:
+            raise SystemExit(f"--inject: {exc}")
+        print(f"fault armed: {armed.describe()}", file=sys.stderr)
+    # The checkpoint's monotonic version rides every reply as
+    # X-Model-Version, from the directory that ACTUALLY loaded (a corrupt
+    # primary rolls back to its last-known-good); a pickle is unversioned.
+    model_version = None
+    try:
+        if args.model:
+            from machine_learning_replications_tpu_torch.persist import checkpoint
+
+            params, info = checkpoint.load_model_versioned(args.model, device=dev)
+            model_version = info["version"]
+        else:
+            params = load_inference_params(pkl=args.pkl, device=dev)
+    except FileNotFoundError as exc:
+        raise SystemExit(f"serve: {exc}")
+    handle = make_server(
+        params,
+        host=args.host,
+        port=args.port,
+        buckets=buckets,
+        max_batch_size=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        max_queue=args.max_queue,
+        warmup=not args.no_warmup,
+        request_timeout_s=args.request_timeout,
+        quiet=not args.verbose,
+        say=lambda m: print(m, file=sys.stderr),
+        slos=(
+            [] if args.no_slo else slo.default_slos(
+                latency_ms=args.slo_latency_ms,
+                latency_target=args.slo_latency_target,
+                availability_target=args.slo_availability_target,
+            )
+        ),
+        trace_capacity=args.trace_capacity,
+        tail_quantile=args.tail_quantile,
+        profile_dir=args.profile_dir,
+        no_quality=args.no_quality,
+        drift_warn_psi=args.drift_warn_psi,
+        drift_alert_psi=args.drift_alert_psi,
+        supervise=not args.no_supervise,
+        flush_deadline_s=args.flush_deadline_s,
+        breaker_failures=args.breaker_failures,
+        restart_backoff_s=args.restart_backoff_s,
+        restart_backoff_max_s=args.restart_backoff_max_s,
+        fault_endpoint=bool(args.inject or args.fault_endpoint),
+        idle_timeout_s=args.idle_timeout,
+        max_connections=args.max_connections,
+        host_path=not args.no_host_path,
+        host_workers=args.host_workers,
+        model_version=model_version,
+        replica_id=args.replica_id,
+        admin_endpoint=args.admin_endpoint,
+        history_interval_s=args.history_interval,
+        alert_rules=(
+            _load_alert_rules(args.alert_rules) if args.alert_rules else None
+        ),
+        alerts_enabled=not args.no_alerts,
+        incident_dir=args.incident_dir,
+        incident_min_interval_s=args.incident_min_interval,
+        incident_retention=args.incident_retention,
+        device=dev,
+    )
+    # The warm startup heap (torch, the parameters, the captured graphs)
+    # is permanent: freeze it out of the collector once, after warmup.
+    gc.collect()
+    gc.freeze()
+    host, port = handle.address
+    print(
+        f"serving {type(params).__name__} on http://{host}:{port} "
+        f"(device {dev}, buckets {buckets}, max_wait {args.max_wait_ms}ms, "
+        f"queue bound {args.max_queue})",
+        file=sys.stderr, flush=True,
+    )
+
+    def _graceful(signum, frame):
+        print("draining and shutting down ...", file=sys.stderr)
+        # shutdown() must not run on the signal-handling main thread while
+        # serve_forever is blocked in it — hand it to a helper thread.
+        threading.Thread(target=handle.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    try:
+        handle.serve_forever()
+    finally:
+        handle.shutdown()
+    return 0
+
+
 def cmd_sweep(args) -> int:
     from machine_learning_replications_tpu_torch.config import SweepConfig
     from machine_learning_replications_tpu_torch.data import selected_indices
@@ -360,7 +541,114 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--out", required=True, help="port checkpoint directory")
     add_device_flag(i)
     i.set_defaults(fn=cmd_import_sklearn)
+
+    v = sub.add_parser(
+        "serve",
+        help="micro-batched HTTP inference server (/predict, /healthz, /metrics)",
+    )
+    add_serve_flags(v)
+    add_alerting_flags(v)
+    add_obs_flags(v)
+    add_device_flag(v)
+    v.set_defaults(fn=cmd_serve)
     return ap
+
+
+def add_alerting_flags(p) -> None:
+    """The JAX CLI's alerting flags (history sampler, alert rules, incident
+    bundles), for ``serve``."""
+    p.add_argument("--history-interval", type=float, default=10.0, metavar="SECONDS",
+                   help="in-process metrics history sampling interval for /debug/history "
+                   "and alert evaluation (0 disables the whole history/alerting plane)")
+    p.add_argument("--alert-rules", default=None, metavar="FILE",
+                   help="JSON alert-rule file (list of rule specs) replacing the built-in "
+                   "replica defaults")
+    p.add_argument("--no-alerts", action="store_true",
+                   help="sample history but evaluate no alert rules")
+    p.add_argument("--incident-dir", default=None, metavar="DIR",
+                   help="capture an incident bundle into DIR when a rule fires")
+    p.add_argument("--incident-min-interval", type=float, default=60.0, metavar="SECONDS",
+                   help="minimum seconds between incident captures")
+    p.add_argument("--incident-retention", type=int, default=8,
+                   help="complete incident bundles retained in --incident-dir")
+
+
+def add_serve_flags(v) -> None:
+    """The JAX CLI's ``serve`` flags, but for the ones not ported yet
+    (ROADMAP item 8b: ``--register``, ``--advertise``, ``--no-aot``,
+    ``--xla-intra-op-threads``; ``--workers`` takes only 1)."""
+    v.add_argument("--model", help="port checkpoint directory (persist/checkpoint.py)")
+    v.add_argument("--pkl", help="legacy sklearn pickle (no default: give this or --model)")
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=8000)
+    v.add_argument("--buckets", default="1,8,32,64,128,256,512",
+                   help="batch-size ladder (comma-separated, ascending): one CUDA graph "
+                   "per bucket on the card; every flush runs as the cheapest covering "
+                   "sequence of buckets")
+    v.add_argument("--max-batch", type=int, default=None,
+                   help="micro-batch flush size (default: 64 on the CPU, the largest "
+                   "bucket on the card)")
+    v.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="max time the oldest queued request waits for batch-mates")
+    v.add_argument("--max-queue", type=int, default=1024,
+                   help="admission-queue bound; requests beyond it are shed with an "
+                   "explicit 503 'overloaded' reply")
+    v.add_argument("--request-timeout", type=float, default=30.0,
+                   help="per-request reply deadline (seconds)")
+    v.add_argument("--no-warmup", action="store_true",
+                   help="skip the startup capture of every bucket (first requests then "
+                   "pay the captures)")
+    v.add_argument("--workers", type=int, default=1,
+                   help="worker processes; only 1 is ported (ROADMAP item 8b)")
+    v.add_argument("--idle-timeout", type=float, default=5.0,
+                   help="seconds a keep-alive connection may sit idle before it is reaped")
+    v.add_argument("--max-connections", type=int, default=8192,
+                   help="concurrent-connection cap")
+    v.add_argument("--slo-latency-ms", type=float, default=250.0,
+                   help="latency SLO threshold in milliseconds")
+    v.add_argument("--slo-latency-target", type=float, default=0.99,
+                   help="latency SLO target fraction (0, 1)")
+    v.add_argument("--slo-availability-target", type=float, default=0.999,
+                   help="availability SLO target fraction")
+    v.add_argument("--no-slo", action="store_true", help="disable SLO tracking")
+    v.add_argument("--trace-capacity", type=int, default=256,
+                   help="flight-recorder bound for /debug/requests")
+    v.add_argument("--tail-quantile", type=float, default=0.99,
+                   help="tail-sampling threshold of ok requests")
+    v.add_argument("--profile-dir", default=None,
+                   help="directory for /debug/profile captures (default: a per-process "
+                   "dir under the system temp dir)")
+    v.add_argument("--no-quality", action="store_true",
+                   help="disable model-quality drift monitoring")
+    v.add_argument("--drift-warn-psi", type=float, default=0.1,
+                   help="PSI at or above which drift status becomes 'warn'")
+    v.add_argument("--drift-alert-psi", type=float, default=0.25,
+                   help="PSI at or above which drift status becomes 'alert'")
+    v.add_argument("--no-supervise", action="store_true",
+                   help="run the engine bare: no watchdog, no circuit breaker, no restart")
+    v.add_argument("--flush-deadline-s", type=float, default=20.0,
+                   help="watchdog deadline per flushed compute")
+    v.add_argument("--breaker-failures", type=int, default=3,
+                   help="consecutive compute failures that open the circuit breaker")
+    v.add_argument("--restart-backoff-s", type=float, default=0.5,
+                   help="initial supervised-restart backoff (doubles per attempt)")
+    v.add_argument("--restart-backoff-max-s", type=float, default=30.0,
+                   help="supervised-restart backoff cap")
+    v.add_argument("--inject", action="append", metavar="SPEC", default=None,
+                   help="arm a faultpoint (repeatable): SITE:MODE[=ARG][@OPTS]; also "
+                   "enables /debug/faults")
+    v.add_argument("--fault-endpoint", action="store_true",
+                   help="enable the guarded /debug/faults chaos endpoint")
+    v.add_argument("--no-host-path", action="store_true",
+                   help="disable the host fast path: every request goes through the "
+                   "micro-batcher and the device engine")
+    v.add_argument("--host-workers", type=int, default=1,
+                   help="host fast-path worker threads")
+    v.add_argument("--replica-id", default=None,
+                   help="fleet identity echoed on every reply as X-Replica")
+    v.add_argument("--admin-endpoint", action="store_true",
+                   help="enable the guarded /admin/deploy warm-swap endpoint")
+    v.add_argument("--verbose", action="store_true", help="log each request")
 
 
 def main(argv=None) -> int:

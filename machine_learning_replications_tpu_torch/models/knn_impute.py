@@ -93,19 +93,33 @@ class ImputeBlock:
         query (the contract-row shape), restricts the distances to the
         complement columns through the dense-query form — the same
         restriction the JAX package makes, so the same distances are
-        compared.
+        compared;
+      * ``dist_index``, set by ``on_device``, holds ``dist_cols`` as an
+        index tensor on the card, so a call uploads nothing (a CUDA-graph
+        capture may not copy from host memory).
     """
 
     nan_cols: tuple[int, ...]
     masked_donor_cols: tuple[int, ...]
     dist_cols: "tuple[int, ...] | None" = None
+    dist_index: "torch.Tensor | None" = dataclasses.field(default=None, compare=False,
+                                                          repr=False)
+
+    def on_device(self, device: torch.device) -> "ImputeBlock":
+        """This block with its distance columns resident on ``device``."""
+        if self.dist_cols is None:
+            return self
+        return dataclasses.replace(
+            self, dist_index=torch.as_tensor(self.dist_cols, device=device))
 
     def distances(self, params: KNNImputerParams, X: torch.Tensor) -> torch.Tensor:
         """``[nq, n_fit]`` squared nan-euclidean distances, NaN → +inf."""
         if self.dist_cols is None:
             D = masked_pairwise_sq_dists(X, params.donors)
         else:
-            cols = torch.as_tensor(self.dist_cols, device=X.device)
+            cols = self.dist_index
+            if cols is None or cols.device != X.device:
+                cols = torch.as_tensor(self.dist_cols, device=X.device)
             D = masked_pairwise_sq_dists_dense_query(X.index_select(1, cols),
                                                      params.donors.index_select(1, cols))
         return torch.where(torch.isnan(D), torch.inf, D)

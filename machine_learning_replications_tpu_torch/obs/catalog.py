@@ -1,9 +1,14 @@
 """The closed catalogs of the port's metric families and journal events.
 
 The port's own catalog, not the JAX package's ``obs/catalog.py``: every
-family ``obs.torchmon`` registers in the port's registry, and every journal
-event the port emits, with the keys each emit site must carry (the event
-entries keep the JAX catalog's names and required keys). Both dicts stay
+family the port registers in its registry, and every journal event the port
+emits, with the keys each emit site must carry. The runtime accounting of
+``obs.torchmon`` is the port's own (``torch_*``); every other family — the
+serving, resilience, quality, request-trace, SLO and alerting ones — and
+every event keep the JAX catalog's names, kinds, labels and required keys,
+because the fleet merges them. The serving layer's fixed ``serve_*``
+instruments (``serve/metrics.py``) render through their own exposition
+path and are outside ``METRICS``, as in JAX. Both dicts stay
 literal (no comprehensions, no calls) so a test can read this file with
 ``ast.literal_eval`` and hold the code to it in both directions: a family
 registered or an event emitted outside the catalog fails, and so does a
@@ -22,6 +27,52 @@ METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "torch_kernel_build_seconds_total": ("counter", ()),
     "torch_kernel_launches_total": ("counter", ("kernel",)),
     "torch_transfer_bytes_total": ("counter", ("direction",)),
+    # -- obs/quality ---------------------------------------------------------
+    "quality_feature_ks": ("gauge", ("feature",)),
+    "quality_feature_psi": ("gauge", ("feature",)),
+    "quality_feed_depth": ("gauge", ()),
+    "quality_feed_dropped_rows_total": ("counter", ("reason",)),
+    "quality_member_disagreement": ("gauge", ()),
+    "quality_rows_total": ("counter", ()),
+    "quality_score_psi": ("gauge", ()),
+    "quality_status": ("gauge", ()),
+    "quality_status_transitions_total": ("counter", ("to",)),
+    "quality_window_rows": ("gauge", ()),
+    # -- obs/reqtrace --------------------------------------------------------
+    "reqtrace_dropped_total": ("counter", ()),
+    "reqtrace_sampled_total": ("counter", ("reason",)),
+    # -- obs/slo -------------------------------------------------------------
+    "slo_bad_total": ("counter", ("slo",)),
+    "slo_burn_rate": ("gauge", ("slo",)),
+    "slo_error_budget_remaining_ratio": ("gauge", ("slo",)),
+    "slo_good_ratio": ("gauge", ("slo",)),
+    "slo_requests_total": ("counter", ("slo",)),
+    "slo_target_ratio": ("gauge", ("slo",)),
+    # -- obs/timeseries ------------------------------------------------------
+    "history_samples_total": ("counter", ()),
+    "history_series": ("gauge", ()),
+    # -- obs/alerts ----------------------------------------------------------
+    "alerts_active": ("gauge", ("rule", "severity")),
+    "alerts_transitions_total": ("counter", ("rule", "transition")),
+    # -- obs/incident --------------------------------------------------------
+    "incident_captures_total": ("counter", ("result",)),
+    # -- obs/profiler --------------------------------------------------------
+    "profile_captures_total": ("counter", ("outcome",)),
+    # -- resilience/ ---------------------------------------------------------
+    "fault_injected_total": ("counter", ("site",)),
+    "resilience_breaker_state": ("gauge", ()),
+    "resilience_breaker_transitions_total": ("counter", ("to",)),
+    "resilience_checkpoint_rollbacks_total": ("counter", ()),
+    "resilience_degraded_sheds_total": ("counter", ()),
+    "resilience_engine_restarts_total": ("counter", ("result",)),
+    "resilience_watchdog_trips_total": ("counter", ()),
+    # -- serve/ --------------------------------------------------------------
+    "serve_deploys_total": ("counter", ("result",)),
+    "serve_host_fallback_total": ("counter", ()),
+    "serve_model_version": ("gauge", ()),
+    "serve_path_total": ("counter", ("path",)),
+    "serve_warmup_seconds": ("gauge", ("path", "bucket")),
+    "serve_worker_info": ("gauge", ("worker",)),
 }
 
 #: Every journal event kind -> the keys EVERY emit site must carry.
@@ -38,4 +89,31 @@ EVENTS: dict[str, tuple[str, ...]] = {
     "checkpoint_publish": ("path", "version"),
     "checkpoint_restore": ("stage",),
     "checkpoint_corrupt": ("stage", "error"),
+    "checkpoint_rollback": ("path", "lastgood", "error"),
+    # -- serving (serve/) ----------------------------------------------------
+    "flush": ("seq", "rows", "ok"),
+    "deploy_start": ("path", "from_version", "replica"),
+    "deploy_applied": ("path", "from_version", "to_version", "replica", "seconds"),
+    "deploy_failed": ("path", "error", "replica", "seconds"),
+    "deploy_quality_detached": ("path",),
+    # -- resilience (resilience/) --------------------------------------------
+    "breaker_open": ("reason", "wedged"),
+    "breaker_close": ("attempts", "open_seconds"),
+    "engine_restart": ("attempt", "ok", "seconds"),
+    "engine_swap": ("warm",),
+    "fault_armed": ("site", "spec"),
+    "fault_disarmed": ("site",),
+    "fault_injected": ("site", "mode", "fire", "spec"),
+    "faults_reset": ("sites",),
+    # -- model quality (obs/quality) -----------------------------------------
+    "quality_status": ("from_status", "to_status", "window_rows", "worst_feature",
+                       "worst_psi", "score_psi"),
+    "quality_rebased": ("reference_rows", "feature_bins"),
+    "quality_feed_disabled": ("error",),
+    "quality_feed_reenabled": ("after",),
+    # -- profiler, alerting (obs/) -------------------------------------------
+    "profile_capture": ("ok", "seconds"),
+    "alert_fired": ("rule", "severity", "value"),
+    "alert_resolved": ("rule", "severity", "seconds"),
+    "incident_captured": ("rule", "dir", "files"),
 }

@@ -126,6 +126,7 @@ class Tracer:
         self._epoch_unix = time.time()
         self._pid = os.getpid()
         self._tids: dict[int, int] = {}  # thread ident -> small stable tid
+        self._vtids: dict[str, int] = {}  # virtual track name -> tid
         self._next_tid = 1
         self._meta: list[dict] = []  # process/thread names: tiny, kept whole
         self._tls = threading.local()
@@ -149,6 +150,63 @@ class Tracer:
                     "args": {"name": threading.current_thread().name},
                 })
         return tid
+
+    # -- merging externally-timed events ------------------------------------
+
+    def current_tid(self) -> int:
+        """The calling thread's tid in this trace (allocated on first use).
+        Call sites stamp it so events recorded *later* — e.g. a sampled
+        request trace emitted at completion — can land on the track where
+        the work actually ran (``add_complete_event``)."""
+        return self._tid()
+
+    def virtual_tid(self, name: str) -> int:
+        """A stable tid for a named *virtual* track (no OS thread behind
+        it) — e.g. one lane per in-flight sampled request, so request
+        timelines render as their own rows instead of interleaving with
+        the handler threads that happened to carry them."""
+        with self._lock:
+            tid = self._vtids.get(name)
+            if tid is None:
+                tid = self._vtids[name] = self._next_tid
+                self._next_tid += 1
+                self._meta.append({
+                    "name": "thread_name", "ph": "M", "pid": self._pid,
+                    "tid": tid, "args": {"name": name},
+                })
+        return tid
+
+    def to_trace_us(self, t_perf: float) -> float:
+        """A raw ``time.perf_counter()`` stamp → this trace's µs timeline."""
+        return (t_perf - self._t0) * 1e6
+
+    def add_complete_event(
+        self,
+        name: str,
+        t0_perf: float,
+        t1_perf: float,
+        tid: int | None = None,
+        cat: str = "span",
+        args: dict | None = None,
+    ) -> None:
+        """Record a ``ph: "X"`` event from raw ``perf_counter`` stamps —
+        the injection point for work timed outside the ``span`` context
+        manager (request phases measured across threads and emitted only
+        if the completed request is tail-sampled). ``tid`` defaults to the
+        calling thread's track; pass a stamped ``current_tid`` /
+        ``virtual_tid`` to place the event where it belongs."""
+        ev = {
+            "name": name, "ph": "X", "cat": cat, "pid": self._pid,
+            "tid": self._tid() if tid is None else int(tid),
+            "ts": round(self.to_trace_us(t0_perf), 3),
+            "dur": round(max(t1_perf - t0_perf, 0.0) * 1e6, 3),
+            "args": dict(args or {}),
+        }
+        with self._lock:
+            self._events.append(ev)
+            if len(self._events) > self.max_events:
+                self._events.popleft()
+                self._dropped += 1
 
     def _stack(self) -> list[str]:
         st = getattr(self._tls, "stack", None)

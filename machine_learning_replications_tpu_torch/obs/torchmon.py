@@ -7,7 +7,8 @@ kernel launches are counted where they happen. ``install`` declares the
 families, and the instrumented call sites feed them:
 
   ``torch_graph_captures_total``        counter — CUDA graphs captured
-                                        (``ops.steps.run_blocks``)
+                                        (``ops.steps.run_blocks``, the
+                                        serving engine's buckets)
   ``torch_kernel_builds_total``         counter — ``nvcc`` builds of a hand
                                         kernel (``ops.cuda_histogram.build``)
   ``torch_kernel_build_seconds_total``  counter — seconds inside those builds
@@ -145,6 +146,13 @@ def _value(key: str):
     if fam is None:
         return 0
     return fam.get().value
+
+
+def compile_count() -> int:
+    """CUDA graphs captured so far in the process (0 before ``install``) —
+    the port's counterpart of the JAX compile count the batcher samples
+    around a flush when its engine keeps no count of its own."""
+    return int(_value("graph_captures"))
 
 
 def _by_label(key: str) -> dict:

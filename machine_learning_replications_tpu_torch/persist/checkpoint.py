@@ -27,7 +27,8 @@ last-known-good); then one ``os.rename`` makes the new tree visible. A
 crash leaves the old checkpoint, or in the window after the rotation the
 last-known-good, which ``load_model`` falls back to. Load: the manifest is
 checked (every file's size and sha256) before any tensor is read; a primary
-that fails to load falls back to ``<path>.lastgood`` with a line on stderr.
+that fails to load falls back to ``<path>.lastgood``, counted and journaled
+(``resilience.lastgood``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from machine_learning_replications_tpu_torch.models import (
 )
 from machine_learning_replications_tpu_torch.obs import journal, torchmon
 from machine_learning_replications_tpu_torch.persist.atomicio import fsync_json_dump
+from machine_learning_replications_tpu_torch.resilience import lastgood
 
 FORMAT = 1
 TENSORS_FILE = "tensors.npz"
@@ -249,8 +251,9 @@ def load_model_versioned(path: "str | os.PathLike", *, device=None) -> tuple[Any
     """``(params, info)`` with ``info = {"path", "version", "rolled_back"}``:
     which directory actually loaded. A primary that fails to load (integrity,
     missing or torn files, a bad sidecar) falls back to its last-known-good,
-    loudly (a line on stderr, ``rolled_back`` True); without one the error
-    propagates."""
+    loudly (``resilience.lastgood.record_rollback``: counted, journaled as
+    ``checkpoint_rollback``, a line on stderr; ``rolled_back`` True); without
+    one the error propagates."""
     dev = resolve_device(device)
     path = os.path.abspath(os.fspath(path))
     try:
@@ -260,8 +263,7 @@ def load_model_versioned(path: "str | os.PathLike", *, device=None) -> tuple[Any
         if not os.path.isdir(lg):
             raise
         params, used = _load_at(lg, dev), lg   # a bad last-known-good raises here
-        print(f"checkpoint {path!r} failed to load ({type(exc).__name__}: {exc}); "
-              f"rolled back to last-known-good {lg!r}", file=sys.stderr)
+        lastgood.record_rollback(path, lg, f"{type(exc).__name__}: {exc}")
     return params, {"path": used, "version": checkpoint_version(used),
                     "rolled_back": used != path}
 

@@ -254,7 +254,7 @@ def test_commands_want_the_card_by_default(argv, monkeypatch):
 def test_parser_has_the_jax_commands_and_flags():
     parser = cli.build_parser()
     sub = next(a for a in parser._actions if a.dest == "command")
-    assert set(sub.choices) == {"train", "predict", "sweep", "import-sklearn"}
+    assert set(sub.choices) == {"train", "predict", "sweep", "import-sklearn", "serve"}
     flags = {name: {o for a in p._actions for o in a.option_strings}
              for name, p in sub.choices.items()}
     assert {"--plots", "--trace-dir", "--journal", "--save", "--resume-dir"} <= flags["train"]
@@ -262,6 +262,11 @@ def test_parser_has_the_jax_commands_and_flags():
     assert {"--n-estimators", "--max-depth", "--folds", "--save"} <= flags["sweep"]
     assert "--trace-dir" not in flags["sweep"]      # JAX's sweep has no obs flags
     assert {"--pkl", "--out"} <= flags["import-sklearn"]
+    # serve: the JAX parser's flags, but for the ones not ported yet, plus --device
+    jsub = next(a for a in jcli.build_parser()._actions if a.dest == "command")
+    jserve = {o for a in jsub.choices["serve"]._actions for o in a.option_strings}
+    deferred = {"--register", "--advertise", "--no-aot", "--xla-intra-op-threads"}
+    assert flags["serve"] == (jserve - deferred) | {"--device"}
     defaults = parser.parse_args(["sweep"])
     jdefaults = jcli.build_parser().parse_args(["sweep"])
     for k in ("n_estimators", "max_depth", "folds", "synthetic", "missing_rate", "seed"):

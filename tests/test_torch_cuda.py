@@ -575,3 +575,170 @@ def test_committed_sklearn_fixture_imports_on_the_card(cuda_device):
     p = stacking.predict_proba(card, X, device=cuda_device).cpu()
     torch.testing.assert_close(p, stacking.predict_proba(cpu, X, device="cpu"), rtol=1e-5,
                                atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine: one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+
+def _serve_families(dev, ens_dtype=torch.float64):
+    """The committed sklearn-layout fixture as the stacking family, its
+    forest as the tree family, and a pipeline with a float64 1-NN imputer
+    over ``make_cohort(1427, missing_rate=0.05)`` in front of it (the
+    ensemble in ``ens_dtype``), all on ``dev``."""
+    from machine_learning_replications_tpu_torch import convert
+    from machine_learning_replications_tpu_torch.models import knn_impute, pipeline
+    from machine_learning_replications_tpu_torch.persist import sklearn_import
+
+    path = sklearn_import.__file__.replace("sklearn_import.py", "testdata/stacking_small.pkl")
+    ens = sklearn_import.import_stacking(sklearn_import.decode_pickle(path), device=dev)
+    if ens_dtype != torch.float64:
+        ens = convert.stacking_params_from_arrays(convert.params_to(ens, "cpu"), device=dev,
+                                                  dtype=ens_dtype)
+    X64, _, _ = make_cohort(n=1427, seed=2020, missing_rate=0.05)
+    mask = torch.zeros(64, dtype=torch.bool, device=dev)
+    mask[selected_indices()] = True
+    pipe = pipeline.PipelineParams(imputer=knn_impute.fit(X64, device=dev), support_mask=mask,
+                                   ensemble=ens)
+    return {"stacking": ens, "tree": ens.gbdt, "pipeline": pipe}
+
+
+def _serve_rows(n, seed=13):
+    from machine_learning_replications_tpu_torch.data.examples import patient_row
+
+    rng = np.random.default_rng(seed)
+    return patient_row() * (1.0 + 0.1 * rng.standard_normal((n, 17)))
+
+
+@pytest.mark.parametrize("family", ["stacking", "tree", "pipeline"])
+def test_serve_engine_captures_one_graph_per_bucket(cuda_device, family):
+    from machine_learning_replications_tpu_torch.obs import torchmon
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    torchmon.install()
+    eng = engine.BucketedPredictEngine(_serve_families(cuda_device)[family], device=cuda_device)
+    before = torchmon.totals()["torch_graph_captures_total"]
+    eng.warmup()
+    assert eng.trace_counts == {b: 1 for b in engine.DEFAULT_BUCKETS}
+    assert torchmon.totals()["torch_graph_captures_total"] == before + len(engine.DEFAULT_BUCKETS)
+    X = _serve_rows(1100)
+    for n in (1, 2, 9, 65, 200, 700, 1100):
+        assert eng.predict(X[:n]).shape == (n,)
+    assert eng.trace_counts == {b: 1 for b in engine.DEFAULT_BUCKETS}
+
+
+@pytest.mark.parametrize("ens_dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("family", ["stacking", "tree", "pipeline"])
+def test_serve_graph_replay_equals_eager_route(cuda_device, family, ens_dtype):
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    params = _serve_families(cuda_device, ens_dtype)[family]
+    eng = engine.BucketedPredictEngine(params, buckets=(1, 8, 64), device=cuda_device)
+    eng.warmup()
+    X = _serve_rows(150)
+    rtol, atol = engine.parity_tolerance(params)
+    for n in (1, 7, 9, 64, 150):
+        np.testing.assert_allclose(eng.predict(X[:n]), engine.oracle_proba1(params, X[:n]),
+                                   rtol=rtol, atol=atol)
+    if family == "pipeline":                 # a NaN contract value: the eager route, on the card
+        Xn = X[:5].copy()
+        Xn[2, 4] = np.nan
+        np.testing.assert_allclose(eng.predict(Xn), engine.oracle_proba1(params, Xn),
+                                   rtol=rtol, atol=atol)
+    assert eng.trace_counts == {1: 1, 8: 1, 64: 1}
+
+
+def test_serve_capture_while_another_engine_replays(cuda_device):
+    """A deploy warms (captures) a new engine while the old one serves from
+    another thread: both stay equal to the eager route."""
+    import threading
+
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    params = _serve_families(cuda_device)["pipeline"]
+    old = engine.BucketedPredictEngine(params, buckets=(1, 8, 64), device=cuda_device)
+    old.warmup()
+    X = _serve_rows(64)
+    want = engine.oracle_proba1(params, X)
+    rtol, atol = engine.parity_tolerance(params)
+    stop, errors, replays = threading.Event(), [], [0]
+
+    def serve():
+        try:
+            while not stop.is_set():
+                np.testing.assert_allclose(old.predict(X), want, rtol=rtol, atol=atol)
+                replays[0] += 1
+        except BaseException as exc:  # pragma: no cover - reported below
+            errors.append(exc)
+
+    t = threading.Thread(target=serve)
+    t.start()
+    try:
+        new = engine.BucketedPredictEngine(params, device=cuda_device)
+        new.warmup()
+    finally:
+        stop.set()
+        t.join()
+    assert not errors and replays[0] > 0
+    np.testing.assert_allclose(new.predict(X), want, rtol=rtol, atol=atol)
+
+
+def test_serve_supervisor_restart_recaptures(cuda_device):
+    import time
+
+    from machine_learning_replications_tpu_torch.resilience import faults
+    from machine_learning_replications_tpu_torch.resilience.supervisor import (
+        BreakerOpen,
+        SupervisedEngine,
+    )
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    params = _serve_families(cuda_device)["stacking"]
+
+    def factory():
+        eng = engine.BucketedPredictEngine(params, buckets=(1, 8), device=cuda_device)
+        eng.warmup()
+        return eng
+
+    first = factory()
+    sup = SupervisedEngine(first, factory, flush_deadline_s=10.0, breaker_failures=2,
+                           restart_backoff_s=0.05, restart_backoff_max_s=0.2)
+    X = _serve_rows(5)
+    want = sup.predict(X)
+    faults.arm("engine.compute:raise@count=2")
+    try:
+        for _ in range(2):
+            with pytest.raises(faults.InjectedFault):
+                sup.predict(X)
+    finally:
+        faults.reset()
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            got = sup.predict(X)
+            break
+        except BreakerOpen:
+            assert time.monotonic() < deadline, "the supervisor never restarted the engine"
+            time.sleep(0.05)
+    try:
+        assert sup._engine is not first and sup._engine.trace_counts == {1: 1, 8: 1}
+        np.testing.assert_array_equal(got, want)
+    finally:
+        sup.close()
+
+
+def test_serve_host_path_agrees_with_the_card(cuda_device):
+    from machine_learning_replications_tpu_torch.serve import engine
+    from machine_learning_replications_tpu_torch.serve.hostpath import HostScorer
+
+    params = _serve_families(cuda_device)["pipeline"]
+    eng = engine.BucketedPredictEngine(params, buckets=(1, 8), device=cuda_device)
+    host = HostScorer(params)
+    eng.warmup()
+    host.warmup()
+    assert host.device.type == "cpu" and not host.trace_counts.keys() - {1, 8}
+    rtol, atol = engine.parity_tolerance(params)
+    for r in _serve_rows(6):
+        np.testing.assert_allclose(host.predict(r[None, :]), eng.predict(r[None, :]),
+                                   rtol=rtol, atol=atol)
