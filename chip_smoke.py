@@ -65,6 +65,27 @@ per phase:
            500s, 503 + Retry-After, recovery on 7 fresh captures with the
            same answer) and ``cli serve --model`` in a subprocess (ready,
            one reply equal to ``cli predict``'s line, SIGTERM, exit 0);
+  score    bulk scoring with the predict phase's full-pipeline checkpoint:
+           ``cli score`` in a subprocess on a 1,000,000-row contract JSONL
+           cohort with 10 malformed lines (2048-row chunks, prefetch 4, 2
+           parse threads: rows/s, wall and stage seconds, 10 quarantined,
+           ``score_done`` journaled); in-process on the first 100,000 lines:
+           sequential = overlapped bytes, a run killed after 10 chunks
+           resumes to the same bytes, every chunk's ``p1`` bit-equal to the
+           eager ``pipeline_predict_proba1_contract`` on its padded chunk,
+           the run equal to the eager whole-cohort call at
+           ``parity_tolerance`` and to the CPU port at (1e-5, 1e-8), a second
+           run captures no graph and builds no kernel, one run profiled
+           (card busy, idle share, H2D bytes); then 20,000 ``.mat`` rows
+           through ``cli score`` against the eager call, and the bare
+           ensemble quarantining the same rows' NaN contract values;
+  learn    continual learning's offline half from the same live checkpoint:
+           1427 captured rows (another seed, Max_Wall_Thick + 4) through
+           ``cli learn retrain`` (journal start then done, a PipelineParams
+           candidate at version >= 1) and ``cli learn shadow --out`` (a
+           strict-JSON verdict with JAX's fields), the candidate's replay on
+           the card against the CPU port at (1e-5, 1e-8), and an in-process
+           ``warm_refit`` timed with its stage seconds;
   train_pipeline  the reference's ``train`` route: ``fit_pipeline`` (1-NN
            impute, LassoCV top-17, the stacking fit with its 5-fold CV, the
            quality profile) on the CLI's 713 + 713 cohort halves, float64,
@@ -98,10 +119,11 @@ splitter's shapes: int32 bins, B = the cohort's unique values per column
 level at 713 and 50,000 rows).
 
 Launch counts are set to 0 just before each of train, train_depth,
-fit_exact, sweep, serve, predict, serve_http, cli (its in-process ``cli
-sweep``) and train_pipeline (its reference-size fit and its scaled fit) and
-read just after; each kernel entry must have launched on that path, and none
-on the predict and serve_http paths.
+fit_exact, sweep, serve, predict, serve_http, score, learn (its in-process
+``warm_refit``), cli (its in-process ``cli sweep``) and train_pipeline (its
+reference-size fit and its scaled fit) and read just after; each kernel
+entry must have launched on that path, and none on the predict, serve_http
+and score paths.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -125,7 +147,7 @@ import torch
 
 from machine_learning_replications_tpu_torch import convert
 from machine_learning_replications_tpu_torch.config import GBDTConfig, SweepConfig
-from machine_learning_replications_tpu_torch.data import make_cohort, selected_indices
+from machine_learning_replications_tpu_torch.data import make_cohort, save_data, selected_indices
 from machine_learning_replications_tpu_torch.models import (
     gbdt, knn_impute, linear, pipeline, scaler, stacking, svm, sweep, tree,
 )
@@ -148,6 +170,14 @@ TPU_KERNELS = {
 STATS = ("grad", "hess", "grad2", "count")
 # Develop rows of the scaled fit_pipeline: bench.py config 4's 50,000.
 SCALED_ROWS = 50_000
+# Bulk scoring: the headline cohort (the JAX package's own score bench size),
+# the prefix the in-process gates run on, the .mat route's rows, and the
+# captured rows of the learn phase (the reference cohort's size).
+SCORE_ROWS = 1_000_000
+SCORE_GATE_ROWS = 100_000
+SCORE_MAT_ROWS = 20_000
+SCORE_BAD_LINES = 10
+CAPTURE_ROWS = 1427
 SHAPE_KEYS = ("n", "F", "K", "folds", "B", "bins", "vals", "launches_per_fit_pipeline",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -981,10 +1011,10 @@ def free_port() -> int:
 class Client:
     """One keep-alive HTTP/1.1 connection (``http.client``)."""
 
-    def __init__(self, port: int) -> None:
+    def __init__(self, port: int, timeout: float = 60) -> None:
         import http.client
 
-        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
 
     def call(self, method: str, path: str, body=None, headers=None) -> tuple:
         """``(status, parsed JSON, headers, seconds)``."""
@@ -1205,7 +1235,9 @@ def phase_serve_http(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
 
             def deploy():
                 time.sleep(0.5)
-                dc = Client(port)
+                # A deploy under this burst took 35-60 s on an H100 host and
+                # longer on a slower one: the reply may take minutes.
+                dc = Client(port, timeout=600)
                 try:
                     return dc.call("POST", "/admin/deploy", {"model": path})
                 finally:
@@ -1306,6 +1338,322 @@ def phase_serve_http(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     return out["launches"]
 
 
+def write_cohort_jsonl(path: str, X17: np.ndarray, bad_before: list) -> np.ndarray:
+    """Contract-order rows as patient-dict JSONL (17 digits per value, so
+    the parse gives back the same float64s), one malformed line before each
+    row index of ``bad_before``; returns ``line_row[line - 1]``, the row of
+    each 1-based input line (-1 on a malformed one)."""
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+
+    fmt = "{" + ", ".join(f'"{k}": %.17g' for k in SELECTED_17) + "}"
+    bad = sorted(bad_before)
+    line_row = np.empty(len(X17) + len(bad), np.int64)
+    with open(path, "w") as f:
+        start, line = 0, 0
+        for i in bad + [len(X17)]:
+            np.savetxt(f, X17[start:i], fmt=fmt)
+            line_row[line:line + i - start] = np.arange(start, i)
+            line += i - start
+            if i < len(X17):
+                f.write('{"Gender": 1, "truncated export line\n')
+                line_row[line] = -1
+                line += 1
+            start = i
+    return line_row
+
+
+def read_scores(out_dir: str) -> tuple:
+    """``(rows, lines, p1)`` of every committed score record, in order."""
+    recs = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("scores-"):
+            with open(os.path.join(out_dir, name)) as f:
+                recs += [json.loads(line) for line in f]
+    return (np.array([r["row"] for r in recs]), np.array([r["line"] for r in recs]),
+            np.array([r["p1"] for r in recs], np.float64))
+
+
+def output_bytes(out_dir: str) -> bytes:
+    """Every score shard and the quarantine sidecar, concatenated."""
+    return b"".join(name.encode() + Path(out_dir, name).read_bytes()
+                    for name in sorted(os.listdir(out_dir))
+                    if name.startswith("scores-") or name == "quarantine.jsonl")
+
+
+def journal_kinds(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line)["kind"] for line in f]
+
+
+def phase_score(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
+    """Bulk scoring on the card (``score/``) with the predict phase's
+    full-pipeline checkpoint. ``cli score`` in a subprocess on a
+    ``SCORE_ROWS``-row contract JSONL cohort with ``SCORE_BAD_LINES``
+    malformed lines at fixed positions, at the CLI's defaults (2048-row
+    chunks, prefetch 4, 2 parse workers): rows/s, wall and stage seconds, the
+    quarantine count, ``score_done`` in its journal. In-process on the first
+    ``SCORE_GATE_ROWS`` lines: sequential and overlapped output bytes equal;
+    a run killed after 10 chunks resumes to the same bytes; every chunk's
+    ``p1`` bit-equal to the eager ``pipeline_predict_proba1_contract`` on its
+    padded chunk; the run's ``p1`` equal to the eager whole-cohort call on the
+    card at ``parity_tolerance`` and to the CPU port at (1e-5, 1e-8); a second
+    run captures no graph and builds no kernel; one run profiled. Then the
+    ``.mat`` route: ``SCORE_MAT_ROWS`` rows of ``make_cohort(missing_rate=
+    0.03)`` in the reference layout through ``cli score``, and the bare
+    ensemble on the same rows' 17 contract columns, which quarantines the rows
+    holding a NaN. No hand kernel lies on this path: the launch counts must
+    stay 0."""
+    import tempfile
+
+    from machine_learning_replications_tpu_torch.data.sharding import pad_rows_to
+    from machine_learning_replications_tpu_torch.obs import torchmon
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+    from machine_learning_replications_tpu_torch.score import ScorePipeline, open_cohort
+    from machine_learning_replications_tpu_torch.score.pipeline import ScoreInterrupted
+    from machine_learning_replications_tpu_torch.score.progress import params_digest
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    torchmon.install()
+    cuda_histogram.reset_launch_counts()
+    params = predict_params(gbdt_params, X17, seed, dev)
+    out = {"phase": "score", "rows": SCORE_ROWS, "bad_lines": SCORE_BAD_LINES,
+           "gate_rows": SCORE_GATE_ROWS, "model": "PipelineParams (predict phase)"}
+    Xc, _, _ = make_cohort(n=SCORE_ROWS, seed=seed + 8)
+    Xc = np.ascontiguousarray(Xc[:, selected_indices()])
+    bad_before = [int(i) for i in np.linspace(5_000, SCORE_ROWS - 5_000, SCORE_BAD_LINES)]
+    scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        model, cohort = f"{tmp}/model", f"{tmp}/cohort.jsonl"
+        checkpoint.save_model(model, params)
+        t0 = time.perf_counter()
+        line_row = write_cohort_jsonl(cohort, Xc, bad_before)
+        out["write_cohort_s"] = time.perf_counter() - t0
+
+        # -- the headline: cli score on the whole cohort ---------------------
+        proc, cli_s = run_cli(["score", "--model", model, "--cohort", cohort, "--out",
+                               f"{tmp}/cli", "--journal", f"{tmp}/cli.jsonl"], timeout=900)
+        with open(f"{tmp}/cli/summary.json") as f:
+            head = json.load(f)
+        kinds = journal_kinds(f"{tmp}/cli.jsonl")
+        check(head["rows"] == SCORE_ROWS and head["bad_rows"] == SCORE_BAD_LINES,
+              f"cli score: {head['rows']} rows, {head['bad_rows']} quarantined")
+        check("score_done" in kinds and kinds[-1] == "run_done",
+              f"score_done in the journal: {kinds[-3:]}")
+        check(head["chunks"] == -(-len(line_row) // 2048), f"{head['chunks']} chunks")
+        out["cli"] = {k: head[k] for k in (
+            "rows", "bad_rows", "chunks", "wall_seconds", "rows_per_second", "stage_seconds",
+            "chunk_rows", "prefetch", "parse_workers", "output_sha256", "torch_graph_captures",
+            "torch_kernel_builds")}
+        out["cli"].update(subprocess_s=cli_s, stdout=proc.stdout.strip().splitlines()[-1])
+        _, lines, p1_cli = read_scores(f"{tmp}/cli")
+        check(bool(np.isfinite(p1_cli).all()) and p1_cli.shape == (SCORE_ROWS,),
+              "finite p1 for every row")
+
+        # -- in-process gates on the first SCORE_GATE_ROWS lines -------------
+        digest = params_digest(model=model)
+
+        def run(name, **kw):
+            src = open_cohort(cohort, 2048, limit=SCORE_GATE_ROWS)
+            return ScorePipeline(params, src, f"{tmp}/{name}", model_digest=digest,
+                                 device=dev, **kw).run()
+
+        seq = run("seq", overlap=False)
+        ovl = run("ovl")
+        check(seq["output_sha256"] == ovl["output_sha256"]
+              and output_bytes(f"{tmp}/seq") == output_bytes(f"{tmp}/ovl"),
+              "sequential and overlapped outputs are the same bytes")
+        try:
+            run("resumed", _interrupt_after_chunks=10)
+            check(False, "the interrupted run stops after 10 chunks")
+        except ScoreInterrupted:
+            pass
+        resumed = run("resumed")
+        check(resumed["resumed"] and resumed["resumed_chunks"] == 10
+              and resumed["output_sha256"] == ovl["output_sha256"]
+              and output_bytes(f"{tmp}/resumed") == output_bytes(f"{tmp}/ovl"),
+              "a run killed after 10 chunks resumes to the same bytes")
+        before = torchmon.totals()
+        again = run("again")
+        after = torchmon.totals()
+        new_work = {k: after[k] - before[k] for k in ("torch_graph_captures_total",
+                                                      "torch_kernel_builds_total")}
+        check(not any(new_work.values()), f"a second run adds no capture or build: {new_work}")
+        h2d0 = after["torch_transfer_bytes_total"].get("h2d", 0)
+        prof = profile_call(lambda: run("profiled")["wall_seconds"])
+        h2d = torchmon.totals()["torch_transfer_bytes_total"].get("h2d", 0) - h2d0
+
+        rows, lines, p1 = read_scores(f"{tmp}/ovl")
+        src_rows = line_row[lines - 1]
+        check(bool((src_rows >= 0).all()) and rows.tolist() == list(range(len(rows))),
+              "row ids in order, each on a valid line")
+        check(bool(np.array_equal(p1, p1_cli[:len(p1)])), "the CLI run's prefix is the same p1")
+        Xg = Xc[src_rows]
+        chunk_of = (lines - 1) // 2048
+        for c in np.unique(chunk_of):
+            sel = chunk_of == c
+            padded, n = pad_rows_to(Xg[sel], 2048, mode="edge")
+            want = pipeline.pipeline_predict_proba1_contract(params, padded, device=dev)
+            check(bool(np.array_equal(p1[sel], want.cpu().numpy().astype(np.float64)[:n])),
+                  f"chunk {c}: p1 bit-equal to the eager route on its padded chunk")
+        whole = pipeline.pipeline_predict_proba1_contract(params, Xg, device=dev)
+        whole = whole.cpu().numpy().astype(np.float64)
+        rtol, atol = engine.parity_tolerance(params)
+        check(bool(np.allclose(p1, whole, rtol=rtol, atol=atol)),
+              f"p1 equals the eager whole-cohort call at {(rtol, atol)}")
+        t0 = time.perf_counter()
+        cpu = pipeline.pipeline_predict_proba1_contract(convert.params_to(params, "cpu"), Xg,
+                                                        device="cpu").numpy().astype(np.float64)
+        cpu_s = time.perf_counter() - t0
+        err = np.abs(p1 - cpu)
+        check(bool((err <= 1e-8 + 1e-5 * np.abs(cpu)).all()),
+              f"p1 equals the CPU port at (1e-5, 1e-8): max abs err {err.max()}")
+        out["gates"] = {
+            "chunks": int(len(np.unique(chunk_of))), "rows": int(len(p1)),
+            "sequential": {k: seq[k] for k in ("wall_seconds", "rows_per_second",
+                                               "stage_seconds")},
+            "overlapped": {k: ovl[k] for k in ("wall_seconds", "rows_per_second",
+                                               "stage_seconds")},
+            "second_run": {k: again[k] for k in ("wall_seconds", "rows_per_second")},
+            "resumed_chunks": resumed["resumed_chunks"], "new_work_second_run": new_work,
+            "max_abs_err_whole_cohort": float(np.abs(p1 - whole).max()),
+            "parity_tolerance": [rtol, atol], "max_abs_err_vs_cpu": float(err.max()),
+            "cpu_port_s": cpu_s, "profile_overlapped": {**prof, "h2d_bytes": h2d},
+            "p1_mean": float(p1.mean())}
+
+        # -- the .mat route ---------------------------------------------------
+        Xm, ym, names = make_cohort(n=SCORE_MAT_ROWS, seed=seed + 9, missing_rate=0.03)
+        save_data(f"{tmp}/cohort.mat", Xm, ym, names)
+        X17m = Xm[:, selected_indices()]
+        save_data(f"{tmp}/cohort17.mat", X17m, ym, np.empty((1, 0), object))
+        _, mat_s = run_cli(["score", "--model", model, "--cohort", f"{tmp}/cohort.mat",
+                            "--out", f"{tmp}/mat"])
+        with open(f"{tmp}/mat/summary.json") as f:
+            mat = json.load(f)
+        _, _, p1m = read_scores(f"{tmp}/mat")
+        check(mat["route"] == "x64" and mat["rows"] == SCORE_MAT_ROWS and mat["bad_rows"] == 0,
+              f".mat route: {mat['route']}, {mat['rows']} rows")
+        want = pipeline.pipeline_predict_proba1(params, Xm, device=dev)
+        want = want.cpu().numpy().astype(np.float64)
+        check(bool(np.allclose(p1m, want, rtol=rtol, atol=atol)),
+              f".mat p1 equals the eager pipeline_predict_proba1 at {(rtol, atol)}")
+        nan_rows = int(np.isnan(X17m).any(axis=1).sum())
+        bare = ScorePipeline(params.ensemble, open_cohort(f"{tmp}/cohort17.mat", 2048),
+                             f"{tmp}/mat17", model_digest="ensemble", device=dev,
+                             max_bad_rows=SCORE_MAT_ROWS).run()
+        check(nan_rows > 0 and bare["bad_rows"] == nan_rows
+              and bare["rows"] == SCORE_MAT_ROWS - nan_rows,
+              f"the bare ensemble quarantines the {nan_rows} NaN rows: {bare['bad_rows']}")
+        out["mat"] = {"rows": SCORE_MAT_ROWS, "missing_rate": 0.03, "cli_subprocess_s": mat_s,
+                      "wall_seconds": mat["wall_seconds"],
+                      "rows_per_second": mat["rows_per_second"],
+                      "max_abs_err_vs_eager": float(np.abs(p1m - want).max()),
+                      "bare_ensemble_quarantined": bare["bad_rows"]}
+    out["launches"] = dict(cuda_histogram.LAUNCHES)
+    check(not any(out["launches"].values()), f"no hand kernel on the score path: {out['launches']}")
+    emit(out)
+    return out["launches"]
+
+
+def phase_learn(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
+    """Continual learning's offline half on the card, from the predict
+    phase's full-pipeline checkpoint (the live model): ``CAPTURE_ROWS``
+    captured rows (``CohortCapture``) from another ``make_cohort`` seed, one
+    selected variable shifted; ``cli learn retrain`` in a subprocess (journal:
+    ``learn_retrain_start`` then ``learn_retrain_done``; the candidate a
+    ``PipelineParams`` checkpoint at version >= 1), ``cli learn shadow
+    --out`` (a strict-JSON verdict with every field of JAX's); the
+    candidate's ``replay_scores`` on the card against the CPU port at (1e-5,
+    1e-8); and an in-process ``warm_refit`` timed, with its stage seconds,
+    launch counts from 0: both kernel entries must launch."""
+    import tempfile
+
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+    from machine_learning_replications_tpu_torch.learn import retrain, shadow
+    from machine_learning_replications_tpu_torch.learn.capture import CohortCapture
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+
+    params = predict_params(gbdt_params, X17, seed, dev)
+    Xc, _, _ = make_cohort(n=CAPTURE_ROWS, seed=seed + 10)
+    captured = np.ascontiguousarray(Xc[:, selected_indices()])
+    shift = "Max_Wall_Thick"
+    captured[:, SELECTED_17.index(shift)] += 4.0
+    out = {"phase": "learn", "captured_rows": CAPTURE_ROWS, "shifted": f"{shift} + 4",
+           "config": "ExperimentConfig()"}
+    scratch = cuda_histogram.BUILD_DIR.parent
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        model, cap, cand = f"{tmp}/live", f"{tmp}/capture", f"{tmp}/candidate"
+        checkpoint.save_model(model, params)
+        capture = CohortCapture(cap, rows_per_shard=512)
+        for row in captured:
+            capture.append_line({k: float(v) for k, v in zip(SELECTED_17, row)})
+        capture.close()
+        y = retrain.pseudo_labels(params, captured, device=dev)
+        out["distilled_positive_share"] = float(y.mean())
+
+        proc, retrain_s = run_cli(["learn", "retrain", "--model", model, "--capture", cap,
+                                   "--candidate", cand, "--journal", f"{tmp}/retrain.jsonl"],
+                                  timeout=900)
+        info = json.loads(proc.stdout)
+        kinds = journal_kinds(f"{tmp}/retrain.jsonl")
+        check("learn_retrain_start" in kinds and "learn_retrain_done" in kinds
+              and kinds.index("learn_retrain_start") < kinds.index("learn_retrain_done"),
+              f"learn_retrain_start then learn_retrain_done: {kinds}")
+        version = checkpoint.checkpoint_version(cand)
+        cand_card = checkpoint.load_model(cand, device=dev)
+        check(isinstance(cand_card, pipeline.PipelineParams) and version is not None
+              and version >= 1 and info["version"] == version,
+              f"the candidate is a PipelineParams checkpoint at version {version}")
+
+        shadow_proc, shadow_s = run_cli(["learn", "shadow", "--model", model, "--capture", cap,
+                                         "--candidate", cand, "--out", f"{tmp}/verdict.json"],
+                                        ok=(0, 1))
+
+        def no_nan(token):
+            raise ValueError(f"non-strict JSON token {token}")
+
+        with open(f"{tmp}/verdict.json") as f:
+            verdict = json.load(f, parse_constant=no_nan)
+        check(shadow_proc.returncode == (0 if verdict["pass"] else 1),
+              f"cli learn shadow exits by its verdict: {shadow_proc.stderr[-2000:]}")
+        check(set(verdict) == {"pass", "reasons", "stats", "thresholds", "candidate_version"}
+              and set(verdict["stats"]) == {
+                  "rows", "divergence_mean", "divergence_p95", "divergence_max", "flip_rate",
+                  "score_psi", "disagreement_live", "disagreement_candidate",
+                  "disagreement_delta", "candidate_quality"}
+              and set(verdict["thresholds"]) == set(shadow.ShadowThresholds().as_dict())
+              and verdict["candidate_version"] == version
+              and verdict["stats"]["rows"] == CAPTURE_ROWS, f"the verdict's fields: {verdict}")
+
+        p1, members, rows = shadow.replay_scores(cand_card, captured, device=dev)
+        cpu = convert.params_to(cand_card, "cpu")
+        p1c, membersc, rowsc = shadow.replay_scores(cpu, captured, device="cpu")
+        errs = {k: float(np.abs(a - b).max()) for k, a, b in (
+            ("p1", p1, p1c), ("members", members, membersc), ("rows", rows, rowsc))}
+        check(all(bool(np.allclose(a, b, rtol=1e-5, atol=1e-8))
+                  for a, b in ((p1, p1c), (members, membersc), (rows, rowsc))),
+              f"the candidate's replay on the card equals the CPU port at (1e-5, 1e-8): {errs}")
+
+        # The main path's run: counts from 0, read right after.
+        torch.cuda.synchronize()
+        cuda_histogram.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, refit = retrain.warm_refit(params, captured, f"{tmp}/refit", device=dev)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        launches = dict(cuda_histogram.LAUNCHES)
+        check(launches["stump_histograms"] > 0 and launches["node_histograms"] > 0,
+              f"warm_refit launched both kernel entries: {launches}")
+        out.update(retrain_cli_s=retrain_s, retrain_cli_info=info, journal=kinds,
+                   shadow_cli_s=shadow_s, verdict_pass=verdict["pass"],
+                   verdict_reasons=verdict["reasons"], verdict_stats=verdict["stats"],
+                   replay_max_abs_err_vs_cpu=errs, warm_refit_s=refit_s,
+                   warm_refit_stage_seconds=refit["stage_seconds"], launches=launches)
+    emit(out)
+    return launches
+
+
 def fold_fit_inputs(rows: int, seed: int, dtype: torch.dtype, dev: torch.device):
     """The stacking CV's GBDT fold fits at ``rows`` develop rows, at their
     first tree level: the host bins of the 17 selected variables (256-bin
@@ -1387,16 +1735,16 @@ def phase_train_kernels(peaks: dict, seed: int, dev: torch.device) -> dict:
     return {"stump_histograms": [stump], "node_histograms": nodes}
 
 
-def run_cli(argv: list, timeout: int = 600) -> tuple:
+def run_cli(argv: list, timeout: int = 600, ok: tuple = (0,)) -> tuple:
     """``python -m machine_learning_replications_tpu_torch *argv`` in a
     fresh process on the card from the checkout's root: ``(completed
-    process, wall seconds)``; a non-zero exit fails the script."""
+    process, wall seconds)``; an exit code outside ``ok`` fails the script."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch", *argv],
                           capture_output=True, text=True, timeout=timeout,
                           cwd=Path(__file__).resolve().parent)
     seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"cli {argv[0]} on the card: {proc.stderr[-2000:]}")
+    check(proc.returncode in ok, f"cli {argv[0]} on the card: {proc.stderr[-2000:]}")
     return proc, seconds
 
 
@@ -1752,6 +2100,10 @@ def main(argv=None) -> int:
     runs.append(phase_predict(gbdt_params, X17, args.seed, dev))
     torch.cuda.empty_cache()
     runs.append(phase_serve_http(gbdt_params, X17, args.seed, dev))
+    torch.cuda.empty_cache()
+    runs.append(phase_score(gbdt_params, X17, args.seed, dev))
+    torch.cuda.empty_cache()
+    runs.append(phase_learn(gbdt_params, X17, args.seed, dev))
     torch.cuda.empty_cache()
     runs.append(phase_cli(args.sweep_rows, args.seed, dev))
     torch.cuda.empty_cache()

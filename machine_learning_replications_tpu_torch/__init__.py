@@ -15,8 +15,11 @@ on first use (``ops/cuda_histogram.py``). ``python -m
 machine_learning_replications_tpu_torch train`` fits the reference ensemble
 end to end, ``predict`` scores one patient through a port checkpoint or a
 sklearn pickle, ``sweep`` runs the GBDT member's CV grid and
-``import-sklearn`` converts a sklearn pickle (``cli.py``); ``--trace-dir``
-and ``--journal`` record a run (``obs/``).
+``import-sklearn`` converts a sklearn pickle, ``serve`` answers HTTP
+requests (``serve/``), ``score`` scores a cohort file in bulk (``score/``)
+and ``learn retrain|shadow`` refits on captured traffic and judges the
+candidate (``learn/``) (``cli.py``); ``--trace-dir`` and ``--journal``
+record a run (``obs/``).
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,13 @@
         [--model DIR | --pkl PICKLE] [--host H] [--port P] [--buckets LADDER] \\
         [serving, resilience, alerting flags as the JAX CLI's] \\
         [--trace-dir DIR] [--journal JSONL] [--device cpu|cuda]
+    python -m machine_learning_replications_tpu_torch score \\
+        (--model DIR | --pkl PICKLE) --cohort JSONL|MAT --out DIR \\
+        [--chunk-rows N] [--prefetch N] [--parse-workers N] [--parse-procs N] \\
+        [the JAX CLI's other score flags] [--device cpu|cuda]
+    python -m machine_learning_replications_tpu_torch learn retrain|shadow \\
+        --model DIR --capture DIR [--candidate DIR] [the JAX CLI's learn flags] \\
+        [--device cpu|cuda]
 
 ``train`` is ``train_ensemble_public.py``: it fits the full pipeline
 (impute → LassoCV top-17 → stacking ensemble → quality profile) on the
@@ -51,7 +58,18 @@ path on the CPU, supervised, drained on SIGTERM. Like ``predict`` it needs
 above 1, ``--register``/``--advertise``, ``--no-aot`` and
 ``--xla-intra-op-threads``.
 
-``--trace-dir`` and ``--journal`` (``train``, ``predict``, ``serve``) write the run's
+``score`` streams a cohort file (JSONL patient dicts or a reference-layout
+``.mat``) through the overlapped ingest → device pipeline (``score/``) into
+sharded, resumable output, as the JAX CLI's does; its ``--mesh`` and
+``--distributed`` exit naming ROADMAP item 7, and ``--xla-intra-op-threads
+N`` bounds torch's host threads (``torch.set_num_threads``). ``learn
+retrain`` refits the live checkpoint's family on captured traffic into a
+versioned candidate, ``learn shadow`` replays the capture through both and
+prints the verdict; ``learn run``, ``promote`` and ``status`` talk to a
+fleet router and exit naming ROADMAP item 8b.
+
+``--trace-dir`` and ``--journal`` (``train``, ``predict``, ``serve``,
+``score``, ``learn``) write the run's
 spans as a Chrome trace (``<dir>/trace.json``) and a JSONL journal (a
 manifest first, then stage and checkpoint events, ``run_done`` last, with
 the run's ``obs.torchmon`` totals). Every command runs on the card unless
@@ -478,6 +496,219 @@ def cmd_import_sklearn(args) -> int:
     return 0
 
 
+def cmd_score(args) -> int:
+    """Population-scale bulk scoring: stream a cohort file through the
+    overlapped ingest → device pipeline into sharded, resumable output."""
+    dev = _device(args, "score")
+    if args.mesh or args.distributed:
+        raise SystemExit(
+            "score: --mesh/--distributed (row-sharded device meshes) are not ported "
+            "yet: they come with data-parallel training (ROADMAP item 7)"
+        )
+    if args.xla_intra_op_threads is not None and args.xla_intra_op_threads < 0:
+        raise SystemExit("--xla-intra-op-threads must be >= 0")
+    if args.xla_intra_op_threads:
+        # The JAX CLI bounds XLA's CPU pool; the port's host-side math
+        # (parse, impute prep, the CPU engine) runs on torch's intra-op pool.
+        torch.set_num_threads(args.xla_intra_op_threads)
+        print(f"torch intra-op threads: {args.xla_intra_op_threads}", file=sys.stderr)
+    if not (args.model or args.pkl):
+        from machine_learning_replications_tpu_torch.persist import sklearn_import
+
+        raise SystemExit(f"score: {sklearn_import.NO_DEFAULT_PKL}")
+    score_cfg = json.dumps({
+        "cohort": args.cohort, "format": args.format, "out": args.out,
+        "model": args.model, "pkl": args.pkl,
+        "chunk_rows": args.chunk_rows, "prefetch": args.prefetch,
+        "parse_workers": args.parse_workers,
+        "parse_procs": args.parse_procs,
+        "rows_per_shard": args.rows_per_shard,
+        "max_bad_rows": args.max_bad_rows,
+        "sequential": args.sequential, "fresh": args.fresh,
+        "limit": args.limit, "mesh": args.mesh,
+        "no_quality": args.no_quality,
+        "quality_window": args.quality_window,
+        "drift_warn_psi": args.drift_warn_psi,
+        "drift_alert_psi": args.drift_alert_psi,
+        "no_fsync": args.no_fsync,
+        "xla_intra_op_threads": args.xla_intra_op_threads,
+        "device": str(dev),
+    }, sort_keys=True)
+    with _observed(args, "score", config_json=score_cfg):
+        return _run_score(args, dev)
+
+
+def _run_score(args, dev: torch.device) -> int:
+    from machine_learning_replications_tpu_torch.persist import load_inference_params
+    from machine_learning_replications_tpu_torch.score import (
+        ScoreBudgetExceeded,
+        ScorePipeline,
+        ScoreResumeError,
+        open_cohort,
+    )
+    from machine_learning_replications_tpu_torch.score.progress import params_digest
+
+    source = open_cohort(args.cohort, args.chunk_rows, fmt=args.format, limit=args.limit)
+    try:
+        params = load_inference_params(model=args.model, pkl=args.pkl, device=dev)
+    except FileNotFoundError as exc:
+        raise SystemExit(f"score: {exc}")
+    pipe = ScorePipeline(
+        params,
+        source,
+        args.out,
+        overlap=not args.sequential,
+        parse_workers=args.parse_workers,
+        parse_procs=args.parse_procs,
+        prefetch=args.prefetch,
+        rows_per_shard=args.rows_per_shard,
+        max_bad_rows=args.max_bad_rows,
+        fresh=args.fresh,
+        durable=not args.no_fsync,
+        quality=not args.no_quality,
+        quality_window=args.quality_window,
+        drift_warn_psi=args.drift_warn_psi,
+        drift_alert_psi=args.drift_alert_psi,
+        model_digest=params_digest(model=args.model, pkl=args.pkl),
+        device=dev,
+    )
+    try:
+        summary = pipe.run()
+    except ScoreResumeError as exc:
+        raise SystemExit(f"score: {exc}")
+    except ScoreBudgetExceeded as exc:
+        print(f"score: ABORTED — {exc}", file=sys.stderr)
+        print(f"quarantine sidecar: {os.path.join(args.out, 'quarantine.jsonl')}",
+              file=sys.stderr)
+        _write_score_metrics(args)
+        return 2
+    mode = "sequential" if args.sequential else (
+        f"overlapped (parse_workers={args.parse_workers}, prefetch={args.prefetch})"
+    )
+    stage = summary["stage_seconds"]
+    print(
+        f"scored {summary['rows']} rows in {summary['chunks']} chunks "
+        f"({summary['bad_rows']} quarantined) — "
+        f"{summary['rows_per_second']} rows/s end-to-end over "
+        f"{summary['wall_seconds']}s wall, {mode}",
+    )
+    print("stage busy seconds: " + ", ".join(f"{k} {v}" for k, v in stage.items()),
+          file=sys.stderr)
+    if summary.get("resumed"):
+        print(f"resumed at chunk {summary['resumed_chunks']} "
+              f"({summary['resumed_rows']} rows already committed)", file=sys.stderr)
+    q = summary.get("quality")
+    if q and q.get("enabled", True):
+        print(
+            f"cohort quality: {q['status']} (score PSI "
+            f"{q['score_psi']}, worst feature {q['worst_feature']} PSI "
+            f"{q['worst_psi']}, {q['rows']} rows) — "
+            f"{os.path.join(args.out, 'quality.json')}",
+            file=sys.stderr,
+        )
+    print(f"output: {len(summary['shards'])} shard(s) in {args.out} "
+          f"(sha256 {summary['output_sha256'][:16]}…)", file=sys.stderr)
+    _write_score_metrics(args)
+    return 0
+
+
+def _write_score_metrics(args) -> None:
+    """--metrics-out: the run's final Prometheus exposition (score_*,
+    quality_*, torch_* families)."""
+    if not args.metrics_out:
+        return
+    from machine_learning_replications_tpu_torch.obs.registry import REGISTRY
+
+    with open(args.metrics_out, "w") as f:
+        f.write(REGISTRY.render_prometheus())
+    print(f"metrics written to {args.metrics_out}", file=sys.stderr)
+
+
+def _learn_thresholds(args):
+    from machine_learning_replications_tpu_torch.learn.shadow import ShadowThresholds
+
+    return ShadowThresholds(
+        max_divergence_mean=args.max_divergence_mean,
+        max_divergence_p95=args.max_divergence_p95,
+        max_flip_rate=args.max_flip_rate,
+        max_score_psi=args.max_score_psi,
+        max_candidate_psi=args.max_candidate_psi,
+        max_disagreement_delta=args.max_disagreement_delta,
+        min_rows=args.shadow_min_rows,
+        require_candidate_profile=not args.allow_no_profile,
+    )
+
+
+def _candidate_default(model: str) -> str:
+    return os.path.abspath(model).rstrip(os.sep) + ".candidate"
+
+
+def cmd_learn(args) -> int:
+    """Continual learning, the offline half: ``retrain`` and ``shadow``."""
+    if args.role in ("run", "promote", "status"):
+        raise SystemExit(
+            f"learn {args.role}: not ported yet — it talks to a fleet router "
+            "(learn/{trigger,promote,loop}.py), which comes with the fleet "
+            "slice (ROADMAP item 8b)"
+        )
+    dev = _device(args, f"learn {args.role}")
+    cfg = _config(args) if getattr(args, "config", None) else None
+    learn_cfg = json.dumps({
+        "role": args.role,
+        "model": args.model,
+        "capture": args.capture,
+        "candidate": args.candidate,
+        "device": str(dev),
+    }, sort_keys=True)
+    with _observed(args, f"learn {args.role}", config_json=learn_cfg):
+        if args.role == "retrain":
+            return _run_learn_retrain(args, cfg, dev)
+        return _run_learn_shadow(args, dev)
+
+
+def _run_learn_retrain(args, cfg, dev: torch.device) -> int:
+    from machine_learning_replications_tpu_torch.learn import capture as capmod
+    from machine_learning_replications_tpu_torch.learn.retrain import warm_refit
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+
+    X17, n_bad = capmod.load_recent(args.capture, max_rows=args.rows)
+    print(f"captured cohort: {X17.shape[0]} rows ({n_bad} malformed dropped)",
+          file=sys.stderr)
+    live = checkpoint.load_model(args.model, device=dev)
+    out = args.candidate or _candidate_default(args.model)
+    try:
+        _params, info = warm_refit(live, X17, out, cfg=cfg, resume_dir=args.resume_dir,
+                                   min_rows=args.min_rows, device=dev)
+    except (ValueError, TypeError) as exc:
+        raise SystemExit(f"learn retrain: {exc}")
+    print(json.dumps(info, indent=1))
+    return 0
+
+
+def _run_learn_shadow(args, dev: torch.device) -> int:
+    from machine_learning_replications_tpu_torch.learn import capture as capmod
+    from machine_learning_replications_tpu_torch.learn import shadow as shadowmod
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+
+    X17, _n_bad = capmod.load_recent(args.capture, max_rows=args.rows)
+    live = checkpoint.load_model(args.model, device=dev)
+    candidate_dir = args.candidate or _candidate_default(args.model)
+    candidate = checkpoint.load_model(candidate_dir, device=dev)
+    verdict = shadowmod.evaluate(
+        live, candidate, X17,
+        thresholds=_learn_thresholds(args),
+        candidate_version=checkpoint.checkpoint_version(candidate_dir),
+        device=dev,
+    )
+    line = json.dumps(verdict, indent=1)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+        print(f"verdict written to {args.out}", file=sys.stderr)
+    return 0 if verdict["pass"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m machine_learning_replications_tpu_torch",
                                  description="PyTorch port of the heart-failure ensemble")
@@ -551,7 +782,334 @@ def build_parser() -> argparse.ArgumentParser:
     add_obs_flags(v)
     add_device_flag(v)
     v.set_defaults(fn=cmd_serve)
+
+    add_learn_parser(sub, add_obs_flags, add_device_flag)
+    add_score_parser(sub, add_obs_flags, add_device_flag)
     return ap
+
+
+def add_learn_parser(sub, add_obs_flags, add_device_flag) -> None:
+    """The JAX CLI's whole ``learn`` parser, ``--device`` added to the roles
+    that load a model."""
+    ln = sub.add_parser(
+        "learn",
+        help="continual learning: warm refit on captured traffic and shadow "
+        "evaluation (run, promote and status need a fleet router: ROADMAP item 8b)",
+    )
+    lsub = ln.add_subparsers(dest="role", required=True)
+
+    def add_shadow_threshold_flags(p):
+        p.add_argument(
+            "--max-divergence-mean", type=float, default=0.15,
+            help="shadow gate: max mean |p_candidate - p_live| over the "
+            "replay (a refit should recalibrate, not reinvent)",
+        )
+        p.add_argument(
+            "--max-divergence-p95", type=float, default=0.35,
+            help="shadow gate: max p95 |p_candidate - p_live|",
+        )
+        p.add_argument(
+            "--max-flip-rate", type=float, default=0.10,
+            help="shadow gate: max fraction of replay rows whose "
+            "0.5-threshold decision flips",
+        )
+        p.add_argument(
+            "--max-score-psi", type=float, default=2.0,
+            help="shadow gate: max PSI between candidate and live score "
+            "distributions over the replay",
+        )
+        p.add_argument(
+            "--max-candidate-psi", type=float, default=0.25,
+            help="shadow gate: max per-feature PSI of the replay vs the "
+            "CANDIDATE's own reference profile (the refit exists to make "
+            "this small)",
+        )
+        p.add_argument(
+            "--max-disagreement-delta", type=float, default=0.15,
+            help="shadow gate: max increase in mean pairwise ensemble "
+            "disagreement, candidate minus live",
+        )
+        p.add_argument(
+            "--shadow-min-rows", type=int, default=64,
+            help="shadow gate: minimum replay rows before a verdict may "
+            "pass (fails closed below)",
+        )
+        p.add_argument(
+            "--allow-no-profile", action="store_true",
+            help="let a candidate without its own quality reference "
+            "profile pass the gate (default: refuse — a promoted model "
+            "must ship its drift baseline)",
+        )
+
+    def add_learn_common(p, router_required: bool, cohort: bool = True):
+        p.add_argument(
+            "--model", required=True,
+            help="the LIVE checkpoint directory (the fleet's deploy "
+            "target; the candidate is judged against, and published "
+            "into, this path)",
+        )
+        p.add_argument(
+            "--candidate", default=None, metavar="DIR",
+            help="candidate checkpoint directory "
+            "(default: <model>.candidate)",
+        )
+        if cohort:  # promote applies a verdict — it never reads rows
+            p.add_argument(
+                "--capture", required=True, metavar="DIR",
+                help="the router's cohort-capture directory "
+                "(`cli fleet router --capture DIR`)",
+            )
+            p.add_argument(
+                "--rows", type=int, default=8192,
+                help="max captured rows to load (newest first)",
+            )
+            p.add_argument(
+                "--min-rows", type=int, default=200,
+                help="refuse to act on fewer captured rows",
+            )
+        if router_required:
+            p.add_argument(
+                "--router", required=True, help="fleet router base URL"
+            )
+
+    lr = lsub.add_parser(
+        "run",
+        help="the closed-loop daemon: poll fleet quality, debounce, "
+        "retrain on sustained alert, shadow-evaluate, promote through "
+        "the fleet deploy rail",
+    )
+    add_learn_common(lr, router_required=True)
+    lr.add_argument(
+        "--alert-streak", type=int, default=3,
+        help="consecutive alert polls before the trigger fires "
+        "(debounce)",
+    )
+    lr.add_argument(
+        "--cooldown", type=float, default=600.0,
+        help="seconds between trigger fires",
+    )
+    lr.add_argument(
+        "--schedule", type=float, default=None,
+        help="also fire every N seconds regardless of drift (subject to "
+        "the cooldown); default: alert-only",
+    )
+    lr.add_argument(
+        "--poll-interval", type=float, default=2.0,
+        help="seconds between quality polls",
+    )
+    lr.add_argument(
+        "--recovery-timeout", type=float, default=120.0,
+        help="seconds to wait for fleet quality to return to ok after a "
+        "promotion (the cycle's closing assertion, journaled either way)",
+    )
+    lr.add_argument(
+        "--settle-timeout", type=float, default=300.0,
+        help="post-trigger capture turnover bound: wait (up to this many "
+        "seconds) until --rows NEW rows were captured after the trigger "
+        "fired, so the refit sees only post-drift traffic — a refit on "
+        "the mixed pre/post-drift window learns a blend whose reference "
+        "profile matches neither population (0 disables)",
+    )
+    lr.add_argument(
+        "--max-cycles", type=int, default=None,
+        help="exit after N completed cycles (drills/CI; default: run "
+        "until signalled)",
+    )
+    lr.add_argument("--config", help="ExperimentConfig JSON for the refit")
+    add_shadow_threshold_flags(lr)
+    add_obs_flags(lr)
+    add_device_flag(lr)
+    lr.set_defaults(fn=cmd_learn)
+
+    lt = lsub.add_parser(
+        "retrain",
+        help="one warm-start refit on the captured cohort -> a versioned "
+        "candidate checkpoint (stage-resumable)",
+    )
+    add_learn_common(lt, router_required=False)
+    lt.add_argument("--config", help="ExperimentConfig JSON for the refit")
+    lt.add_argument(
+        "--resume-dir", default=None,
+        help="StageCheckpointer directory: a preempted refit re-entered "
+        "with the same captured cohort resumes instead of restarting",
+    )
+    add_obs_flags(lt)
+    add_device_flag(lt)
+    lt.set_defaults(fn=cmd_learn)
+
+    lw = lsub.add_parser(
+        "shadow",
+        help="replay the captured cohort through live + candidate and "
+        "print the machine-readable verdict (exit 1 on fail)",
+    )
+    add_learn_common(lw, router_required=False)
+    lw.add_argument(
+        "--out", default=None,
+        help="write the verdict JSON here (the input `learn promote` "
+        "requires)",
+    )
+    add_shadow_threshold_flags(lw)
+    add_obs_flags(lw)
+    add_device_flag(lw)
+    lw.set_defaults(fn=cmd_learn)
+
+    lp = lsub.add_parser(
+        "promote",
+        help="apply a shadow verdict: publish the candidate into the "
+        "live path and drive the fleet's rolling deploy (pass), or park "
+        "it with a REFUSED.json (fail)",
+    )
+    add_learn_common(lp, router_required=True, cohort=False)
+    lp.add_argument(
+        "--verdict", required=False, default=None,
+        help="verdict JSON from `learn shadow --out` (required: "
+        "promotion without a verdict is the unguarded swap the gate "
+        "exists to prevent)",
+    )
+    lp.add_argument(
+        "--no-aot", action="store_true",
+        help="publish the promoted model WITHOUT the AOT executable "
+        "bundle (kept for the JAX CLI's parser; promote is not ported yet)",
+    )
+    lp.add_argument(
+        "--timeout", type=float, default=1800.0,
+        help="end-to-end rollout timeout (seconds)",
+    )
+    add_obs_flags(lp)
+    add_device_flag(lp)
+    lp.set_defaults(fn=cmd_learn)
+
+    ls = lsub.add_parser(
+        "status",
+        help="fleet quality + capture-window + candidate state in one "
+        "snapshot",
+    )
+    ls.add_argument("--router", required=True, help="fleet router base URL")
+    ls.add_argument(
+        "--candidate", default=None,
+        help="also report this candidate dir's version/parked state",
+    )
+    ls.set_defaults(fn=cmd_learn)
+
+
+def add_score_parser(sub, add_obs_flags, add_device_flag) -> None:
+    """The JAX CLI's ``score`` flags, ``--device`` added."""
+    c = sub.add_parser(
+        "score",
+        help="bulk-score a streamed cohort file (JSONL patients or .mat) "
+        "into sharded, resumable output",
+    )
+    c.add_argument("--model", help="port checkpoint directory (persist/checkpoint.py)")
+    c.add_argument(
+        "--pkl", help="legacy sklearn pickle (no default: give this or --model)"
+    )
+    c.add_argument(
+        "--cohort", required=True,
+        help="cohort path: JSONL (one 17-variable patient object per "
+        "line, the loadgen --patients format) or a reference-layout .mat "
+        "(64 raw schema columns routed through impute → select → "
+        "ensemble; a trailing outcome column is ignored)",
+    )
+    c.add_argument(
+        "--format", choices=("auto", "jsonl", "mat"), default="auto",
+        help="cohort format (default: by file extension)",
+    )
+    c.add_argument(
+        "--out", required=True,
+        help="output directory: scores-NNNNN.jsonl shards, "
+        "quarantine.jsonl, progress.json (the resume manifest), "
+        "summary.json, quality.json",
+    )
+    c.add_argument(
+        "--chunk-rows", type=int, default=2048,
+        help="rows per streamed chunk — the device stage's one padded "
+        "shape AND the durable commit/resume granularity",
+    )
+    c.add_argument(
+        "--prefetch", type=int, default=4,
+        help="bounded prefetch budget: how many chunks ingest may run "
+        "ahead of the device stage",
+    )
+    c.add_argument(
+        "--parse-workers", type=int, default=2,
+        help="parse/validate/impute-route worker THREADS feeding the "
+        "device stage (used when --parse-procs is 0, and always for "
+        ".mat cohorts)",
+    )
+    c.add_argument(
+        "--parse-procs", type=int, default=0,
+        help="ingest-parse worker PROCESSES for JSONL cohorts (spawned; "
+        "the JSON/validate stage then runs free of the parent's GIL — "
+        "worth it on many-core hosts where ingest parsing, not total "
+        "CPU, is the ceiling; 0 = in-process threads, the default)",
+    )
+    c.add_argument(
+        "--rows-per-shard", type=int, default=500_000,
+        help="output shard rotation size",
+    )
+    c.add_argument(
+        "--max-bad-rows", type=int, default=1000,
+        help="malformed-row error budget: bad rows are quarantined to "
+        "quarantine.jsonl with line numbers and the run continues, until "
+        "this many — then it aborts (exit 2) instead of silently scoring "
+        "a garbage cohort's parseable minority",
+    )
+    c.add_argument(
+        "--sequential", action="store_true",
+        help="disable the overlapped pipeline: read → parse → device → "
+        "write strictly serialized (the bench ablation and the debugging "
+        "fallback)",
+    )
+    c.add_argument(
+        "--fresh", action="store_true",
+        help="discard any resumable progress in --out and start over "
+        "(default: a matching progress.json resumes at the last "
+        "committed chunk)",
+    )
+    c.add_argument(
+        "--limit", type=int, default=None,
+        help="score only the first N input rows (bench/CI convenience)",
+    )
+    c.add_argument(
+        "--no-quality", action="store_true",
+        help="skip the cohort-level quality snapshot even when the "
+        "checkpoint carries a reference profile",
+    )
+    c.add_argument(
+        "--quality-window", type=int, default=1 << 20,
+        help="quality-monitor window over the scored population (rows)",
+    )
+    c.add_argument("--drift-warn-psi", type=float, default=None)
+    c.add_argument("--drift-alert-psi", type=float, default=None)
+    c.add_argument(
+        "--no-fsync", action="store_true",
+        help="skip per-commit fsync (faster on slow disks; a crash may "
+        "then lose the last chunks to the page cache, though resume "
+        "still recovers consistently from what reached disk)",
+    )
+    c.add_argument(
+        "--metrics-out", default=None,
+        help="write the run's final Prometheus exposition (score_*, "
+        "quality_*, torch_* families) to this path",
+    )
+    c.add_argument(
+        "--xla-intra-op-threads", type=int, default=None,
+        help="bound torch's host intra-op thread pool "
+        "(torch.set_num_threads; default and 0: leave it alone — bulk "
+        "scoring is throughput-bound)",
+    )
+    c.add_argument(
+        "--mesh", default=None,
+        help="device-mesh shape DATA[,MODEL] or 'auto' (not ported yet: "
+        "ROADMAP item 7)",
+    )
+    c.add_argument(
+        "--distributed", action="store_true",
+        help="bring up a multi-host runtime first (not ported yet: ROADMAP item 7)",
+    )
+    add_obs_flags(c)
+    add_device_flag(c)
+    c.set_defaults(fn=cmd_score)
 
 
 def add_alerting_flags(p) -> None:

@@ -152,15 +152,24 @@ class ImputeBlock:
         return out
 
 
-def resolve_block_fn(params: KNNImputerParams, X: "np.ndarray | torch.Tensor") -> ImputeBlock:
+def donor_nan_columns(params: KNNImputerParams) -> np.ndarray:
+    """``[F]`` host flags: which donor columns hold a NaN (one device
+    reduction and a fetch)."""
+    return to_host(torch.isnan(params.donors).any(dim=0))
+
+
+def resolve_block_fn(params: KNNImputerParams, X: "np.ndarray | torch.Tensor",
+                     donor_nan: "np.ndarray | None" = None) -> ImputeBlock:
     """The ``ImputeBlock`` for ``X``'s NaN pattern: NaN columns from the
-    query, the masked subset from the donors (one device reduction and a
-    fetch of ``[F]`` flags), and the ``dist_cols`` restriction when every
-    NaN column is fully missing. For callers whose pattern is fixed across
-    many ``transform`` calls, resolve once and pass it back as ``block_fn``."""
+    query, the masked subset from the donors (``donor_nan_columns``, unless
+    the caller passes those flags, fetched once), and the ``dist_cols``
+    restriction when every NaN column is fully missing. For callers whose
+    pattern is fixed across many ``transform`` calls, resolve once and pass
+    it back as ``block_fn``."""
     isnan = np.isnan(to_host(X))
     nan_cols = tuple(int(c) for c in np.flatnonzero(isnan.any(axis=0)))
-    donor_nan = to_host(torch.isnan(params.donors).any(dim=0))
+    if donor_nan is None:
+        donor_nan = donor_nan_columns(params)
     masked = tuple(c for c in nan_cols if donor_nan[c])
     dist_cols = None
     if nan_cols and bool(isnan[:, list(nan_cols)].all()):
@@ -195,9 +204,20 @@ def transform(
         return out
     if block_fn is None:
         block_fn = resolve_block_fn(params, X_np[rows])
-    rows_t = torch.as_tensor(rows, device=out.device)
-    for s in range(0, rows.size, chunk):
-        r = rows_t[s:s + chunk]
+    return impute_rows(params, out, torch.as_tensor(rows, device=out.device), block_fn, chunk)
+
+
+def impute_rows(params: KNNImputerParams, out: torch.Tensor, rows: torch.Tensor,
+                block_fn: ImputeBlock, chunk_rows: int | None = None) -> torch.Tensor:
+    """``transform``'s device half: impute the rows ``rows`` (an index
+    tensor on ``out``'s device) of ``out`` in place through ``block_fn``,
+    in blocks of ``chunk_rows``; returns ``out``. Nothing here reads host
+    memory or waits for the card, so a caller that keeps ``out`` and
+    ``rows`` on the card (the bulk scorer's device stage) queues it
+    without a sync."""
+    chunk = ImputerConfig().chunk_rows if chunk_rows is None else chunk_rows
+    for s in range(0, int(rows.shape[0]), chunk):
+        r = rows[s:s + chunk]
         out[r] = block_fn(params, out[r])
     return out
 

@@ -100,17 +100,28 @@ def support_feature_names(params: PipelineParams) -> list[str]:
     return [names[i] for i in np.flatnonzero(to_host(params.support_mask))]
 
 
+def support_columns(params: PipelineParams) -> torch.Tensor:
+    """The support mask's column indices, as an index tensor on the
+    imputer's device (one fetch of the mask). Callers that select many
+    times resolve it once and pass it to ``impute_select`` as ``cols``."""
+    return torch.as_tensor(np.flatnonzero(to_host(params.support_mask)),
+                           device=params.imputer.donors.device)
+
+
 def impute_select(
     params: PipelineParams, X64: "np.ndarray | torch.Tensor",
     block_fn: "knn_impute.ImputeBlock | None" = None,
+    cols: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """KNN-impute raw 64-wide rows and keep the support columns → the
     ensemble's ``[n, n_selected]`` input, on the imputer's device.
     ``block_fn`` is a pre-resolved imputer block for callers with a fixed
-    query NaN pattern (``resolve_contract_block_fn``)."""
+    query NaN pattern (``resolve_contract_block_fn``); ``cols`` the
+    pre-resolved ``support_columns`` (else the mask is fetched per call)."""
     X_imp = knn_impute.transform(params.imputer, X64, block_fn=block_fn)
-    cols = torch.as_tensor(np.flatnonzero(to_host(params.support_mask)), device=X_imp.device)
-    return X_imp.index_select(1, cols)
+    if cols is None:
+        cols = support_columns(params)
+    return X_imp.index_select(1, cols.to(X_imp.device))
 
 
 def _check_device(params: PipelineParams, device) -> None:

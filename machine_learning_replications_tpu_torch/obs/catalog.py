@@ -4,7 +4,8 @@ The port's own catalog, not the JAX package's ``obs/catalog.py``: every
 family the port registers in its registry, and every journal event the port
 emits, with the keys each emit site must carry. The runtime accounting of
 ``obs.torchmon`` is the port's own (``torch_*``); every other family — the
-serving, resilience, quality, request-trace, SLO and alerting ones — and
+serving, resilience, quality, request-trace, SLO, alerting, bulk-scoring
+and continual-learning ones — and
 every event keep the JAX catalog's names, kinds, labels and required keys,
 because the fleet merges them. The serving layer's fixed ``serve_*``
 instruments (``serve/metrics.py``) render through their own exposition
@@ -73,6 +74,28 @@ METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "serve_path_total": ("counter", ("path",)),
     "serve_warmup_seconds": ("gauge", ("path", "bucket")),
     "serve_worker_info": ("gauge", ("worker",)),
+    # -- learn/ --------------------------------------------------------------
+    "learn_capture_rows_total": ("counter", ()),
+    "learn_capture_retained_rows": ("gauge", ()),
+    "learn_retrain_total": ("counter", ("result",)),
+    "learn_retrain_seconds": ("gauge", ()),
+    "learn_shadow_divergence_mean": ("gauge", ()),
+    "learn_shadow_divergence_p95": ("gauge", ()),
+    "learn_shadow_divergence_max": ("gauge", ()),
+    "learn_shadow_flip_rate": ("gauge", ()),
+    "learn_shadow_score_psi": ("gauge", ()),
+    "learn_shadow_candidate_worst_psi": ("gauge", ()),
+    "learn_shadow_candidate_status": ("gauge", ()),
+    "learn_shadow_disagreement_delta": ("gauge", ()),
+    "learn_shadow_rows": ("gauge", ()),
+    "learn_shadow_evaluations_total": ("counter", ("verdict",)),
+    # -- score/ --------------------------------------------------------------
+    "score_rows_total": ("counter", ()),
+    "score_quarantined_rows_total": ("counter", ()),
+    "score_chunks_total": ("counter", ()),
+    "score_chunk_seconds": ("histogram", ()),
+    "score_queue_depth": ("gauge", ("stage",)),
+    "score_stage_seconds_total": ("counter", ("stage",)),
 }
 
 #: Every journal event kind -> the keys EVERY emit site must carry.
@@ -116,4 +139,16 @@ EVENTS: dict[str, tuple[str, ...]] = {
     "alert_fired": ("rule", "severity", "value"),
     "alert_resolved": ("rule", "severity", "seconds"),
     "incident_captured": ("rule", "dir", "files"),
+    # -- learn/ --------------------------------------------------------------
+    "learn_retrain_start": ("family", "rows", "labels_source", "out"),
+    "learn_retrain_done": (),
+    "learn_retrain_failed": ("error", "rows", "seconds"),
+    "learn_shadow_verdict": ("passed", "reasons"),
+    # -- score/ --------------------------------------------------------------
+    "score_resume": ("chunks", "rows", "bad_rows", "lines"),
+    "score_chunk": ("seq", "rows", "bad", "seconds"),
+    "score_done": (
+        "rows", "bad_rows", "chunks", "wall_seconds", "rows_per_second",
+        "output_sha256",
+    ),
 }

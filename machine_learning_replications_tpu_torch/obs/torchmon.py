@@ -18,9 +18,11 @@ families, and the instrumented call sites feed them:
   ``torch_transfer_bytes_total{direction=...}``
                                         counter — host/device bytes moved
                                         through ``device_put`` / ``device_get``
-                                        only: checkpoint loads (h2d) and
-                                        ``device.to_host`` (d2h). The models'
-                                        own ``torch.as_tensor(..., device=)``
+                                        (checkpoint loads h2d, ``device.to_host``
+                                        d2h) and the bulk scorer's pinned
+                                        copies (``score.pipeline.ChunkScorer``)
+                                        only. The models' own
+                                        ``torch.as_tensor(..., device=)``
                                         uploads are NOT counted, so this is
                                         a subset of the traffic, not a total
 
@@ -66,8 +68,8 @@ def _declare(registry: MetricsRegistry) -> dict[str, Any]:
         "transfer_bytes": registry.counter(
             "torch_transfer_bytes_total",
             "Host/device bytes through obs.torchmon.device_put / device_get "
-            "only: checkpoint loads (h2d) and device.to_host (d2h); the "
-            "models' own uploads are not counted.",
+            "(checkpoint loads h2d, device.to_host d2h) and the bulk scorer's "
+            "pinned copies only; the models' own uploads are not counted.",
             labels=("direction",),
         ),
     }

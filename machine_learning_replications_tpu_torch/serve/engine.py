@@ -275,8 +275,7 @@ class BucketedPredictEngine:
             # eager impute_select fetches the mask per call) and the
             # imputer's contract-pattern block, whose resolution reduces
             # the donors' NaN flags on the device and fetches them.
-            self._cols = torch.as_tensor(
-                np.flatnonzero(to_host(p.support_mask)), device=self.device)
+            self._cols = pipeline.support_columns(p)
             self._block = pipeline.resolve_contract_block_fn(p).on_device(self.device)
             self._in_dtype = torch.promote_types(torch.float64, p.imputer.donors.dtype)
         else:

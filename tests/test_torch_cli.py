@@ -254,7 +254,8 @@ def test_commands_want_the_card_by_default(argv, monkeypatch):
 def test_parser_has_the_jax_commands_and_flags():
     parser = cli.build_parser()
     sub = next(a for a in parser._actions if a.dest == "command")
-    assert set(sub.choices) == {"train", "predict", "sweep", "import-sklearn", "serve"}
+    assert set(sub.choices) == {"train", "predict", "sweep", "import-sklearn", "serve", "score",
+                                "learn"}
     flags = {name: {o for a in p._actions for o in a.option_strings}
              for name, p in sub.choices.items()}
     assert {"--plots", "--trace-dir", "--journal", "--save", "--resume-dir"} <= flags["train"]
@@ -267,6 +268,17 @@ def test_parser_has_the_jax_commands_and_flags():
     jserve = {o for a in jsub.choices["serve"]._actions for o in a.option_strings}
     deferred = {"--register", "--advertise", "--no-aot", "--xla-intra-op-threads"}
     assert flags["serve"] == (jserve - deferred) | {"--device"}
+    # score: every flag of the JAX parser's, plus --device; learn: every role
+    # and flag, --device on the roles that load a model
+    jscore = {o for a in jsub.choices["score"]._actions for o in a.option_strings}
+    assert flags["score"] == jscore | {"--device"}
+    roles = next(a for a in sub.choices["learn"]._actions if a.dest == "role").choices
+    jroles = next(a for a in jsub.choices["learn"]._actions if a.dest == "role").choices
+    assert set(roles) == set(jroles) == {"run", "retrain", "shadow", "promote", "status"}
+    for role, p in roles.items():
+        got = {o for a in p._actions for o in a.option_strings}
+        want = {o for a in jroles[role]._actions for o in a.option_strings}
+        assert got == want | ({"--device"} if role != "status" else set()), role
     defaults = parser.parse_args(["sweep"])
     jdefaults = jcli.build_parser().parse_args(["sweep"])
     for k in ("n_estimators", "max_depth", "folds", "synthetic", "missing_rate", "seed"):

@@ -14,6 +14,7 @@ sums, which may flip a near-tied split.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -742,3 +743,107 @@ def test_serve_host_path_agrees_with_the_card(cuda_device):
     for r in _serve_rows(6):
         np.testing.assert_allclose(host.predict(r[None, :]), eng.predict(r[None, :]),
                                    rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# bulk scoring: pinned double-buffered copies on a copy stream
+# ---------------------------------------------------------------------------
+
+
+def _score_cohort(path, n, bad_every=97, seed=21):
+    """A JSONL contract cohort of ``n`` rows with a malformed line before
+    every ``bad_every``-th row; returns the valid rows."""
+    import json
+
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+
+    rows = _serve_rows(n, seed=seed)
+    with open(path, "w") as f:
+        for i, row in enumerate(rows):
+            if i and i % bad_every == 0:
+                f.write("{not json\n")
+            f.write(json.dumps({k: float(v) for k, v in zip(SELECTED_17, row)}) + "\n")
+    return rows
+
+
+def _score_run(params, path, out, dev, **kw):
+    from machine_learning_replications_tpu_torch.score import ScorePipeline, open_cohort
+
+    kw.setdefault("rows_per_shard", 250)
+    return ScorePipeline(params, open_cohort(str(path), kw.pop("chunk_rows", 64)), str(out),
+                         model_digest="card-test", device=dev, **kw).run()
+
+
+def _score_bytes(out):
+    return b"".join(name.encode() + open(os.path.join(out, name), "rb").read()
+                    for name in sorted(os.listdir(out))
+                    if name.startswith("scores-") or name == "quarantine.jsonl")
+
+
+@pytest.mark.parametrize("family", ["stacking", "pipeline"])
+def test_score_overlapped_equals_sequential_on_the_card(cuda_device, tmp_path, family):
+    import json
+
+    from machine_learning_replications_tpu_torch import convert
+    from machine_learning_replications_tpu_torch.obs import torchmon
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    torchmon.install()
+    params = _serve_families(cuda_device, torch.float32)[family]
+    rows = _score_cohort(tmp_path / "c.jsonl", 600)
+    seq = _score_run(params, tmp_path / "c.jsonl", tmp_path / "seq", cuda_device, overlap=False)
+    before = torchmon.totals()
+    ovl = _score_run(params, tmp_path / "c.jsonl", tmp_path / "ovl", cuda_device)
+    after = torchmon.totals()
+    assert seq["rows"] == ovl["rows"] == 600 and ovl["bad_rows"] == 6
+    assert seq["output_sha256"] == ovl["output_sha256"]
+    assert _score_bytes(tmp_path / "seq") == _score_bytes(tmp_path / "ovl")
+    for key in ("torch_graph_captures_total", "torch_kernel_builds_total"):
+        assert after[key] == before[key]
+    p1 = np.asarray([json.loads(line)["p1"] for name in sorted(os.listdir(tmp_path / "ovl"))
+                     if name.startswith("scores-")
+                     for line in open(tmp_path / "ovl" / name)])
+    cpu = engine.oracle_proba1(convert.params_to(params, "cpu"), rows)
+    np.testing.assert_allclose(p1, cpu, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("family", ["stacking", "tree", "pipeline"])
+def test_score_three_chunks_in_flight_equal_the_eager_route(cuda_device, family):
+    """Three chunks submitted before the first is finished hold three
+    pinned slots; each chunk's ``p1`` equals the eager route on its own
+    padded chunk on the card, bit for bit."""
+    from machine_learning_replications_tpu_torch.data.sharding import pad_rows_to
+    from machine_learning_replications_tpu_torch.score.pipeline import ChunkScorer
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    params = _serve_families(cuda_device, torch.float32)[family]
+    scorer = ChunkScorer(params, 256, "contract", device=cuda_device)
+    X = _serve_rows(700, seed=5)
+    chunks = [X[:256], X[256:512], X[512:]]
+    pending = [scorer.submit(scorer.prep(c)) for c in chunks]
+    assert not scorer._free                       # three slots in flight
+    for c, handle in zip(chunks, pending):
+        p1, members, qrows = scorer.finish(handle)
+        padded, n = pad_rows_to(c, 256, mode="edge")
+        want = engine.oracle_proba1(params, padded, device=cuda_device)[:n]
+        np.testing.assert_array_equal(p1, want)
+        assert qrows.shape == (n, 17) and (members is None) == (family == "tree")
+    assert len(scorer._free) == 3
+    again = scorer.submit(scorer.prep(chunks[0]))
+    assert len(scorer._free) == 2                 # a finished slot is reused
+    np.testing.assert_array_equal(scorer.finish(again)[0], scorer.finish(pending[0])[0])
+
+
+def test_score_parse_worker_race(cuda_device, tmp_path):
+    """Four parse threads against the device thread (a small prefetch
+    budget, short chunks): the output bytes equal the sequential run's."""
+    params = _serve_families(cuda_device, torch.float32)["pipeline"]
+    _score_cohort(tmp_path / "c.jsonl", 1500, bad_every=211)
+    seq = _score_run(params, tmp_path / "c.jsonl", tmp_path / "seq", cuda_device, overlap=False,
+                     chunk_rows=32)
+    for k in range(2):
+        out = tmp_path / f"race{k}"
+        ovl = _score_run(params, tmp_path / "c.jsonl", out, cuda_device, chunk_rows=32,
+                         parse_workers=4, prefetch=2)
+        assert ovl["output_sha256"] == seq["output_sha256"]
+        assert _score_bytes(out) == _score_bytes(tmp_path / "seq")

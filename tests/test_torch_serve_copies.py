@@ -1,5 +1,5 @@
-"""Copy drift between the JAX package's jax-free serving modules and the
-port's copies of them.
+"""Copy drift between the JAX package's jax-free modules (serving, bulk
+scoring, the continual-learning capture) and the port's copies of them.
 
 The port imports nothing of the JAX package, so it keeps its own copy of
 each jax-free module serving needs. A verbatim copy must stay equal to its
@@ -32,6 +32,11 @@ VERBATIM = (
     "obs/timeseries.py",
     "obs/alerts.py",
     "obs/incident.py",
+    "lazyimport.py",
+    "score/progress.py",
+    "score/writer.py",
+    "score/reader.py",
+    "learn/capture.py",
 )
 
 
