@@ -86,6 +86,24 @@ per phase:
            strict-JSON verdict with JAX's fields), the candidate's replay on
            the card against the CPU port at (1e-5, 1e-8), and an in-process
            ``warm_refit`` timed with its stage seconds;
+  fleet    the fleet on the card, every process a subprocess of the port's
+           CLI: ``fleet router --capture`` (owning no CUDA context),
+           ``fleet autoscale --min 2 --max 3`` spawning two replicas on the
+           card (seconds to ready; the ready deadline set from the
+           serve_http phase's measured ``cli serve`` cold start), one
+           ``serve --workers 2 --register`` replica (each worker owns a CUDA
+           context, the parent none); a 32-client x 50 burst of shifted
+           patients through the router (0 non-200, every reply equal to its
+           version's oracle on the card and the CPU port, every replica
+           serving; requests/s, p50, p99 with three, one and two replicas in
+           rotation and straight at one replica; card memory); SIGKILL of an
+           autoscaled replica under a burst (0 non-200, respawned, back in
+           rotation); ``learn run`` on the router's capture with stated
+           gates rolling v2 out under a 16-client burst (promoted, every
+           replica at v2, replies equal to v2's oracles, both kernel entries
+           launched, per-replica deploy seconds); ``fleet status`` and
+           ``learn status`` as strict JSON; SIGTERM to everything (exit 0,
+           every replica deregistered, peak card memory per process);
   train_pipeline  the reference's ``train`` route: ``fit_pipeline`` (1-NN
            impute, LassoCV top-17, the stacking fit with its 5-fold CV, the
            quality profile) on the CLI's 713 + 713 cohort halves, float64,
@@ -120,10 +138,12 @@ level at 713 and 50,000 rows).
 
 Launch counts are set to 0 just before each of train, train_depth,
 fit_exact, sweep, serve, predict, serve_http, score, learn (its in-process
-``warm_refit``), cli (its in-process ``cli sweep``) and train_pipeline (its
-reference-size fit and its scaled fit) and read just after; each kernel
-entry must have launched on that path, and none on the predict, serve_http
-and score paths.
+``warm_refit``), fleet, cli (its in-process ``cli sweep``) and
+train_pipeline (its reference-size fit and its scaled fit) and read just
+after; each kernel entry must have launched on that path, and none on the
+predict, serve_http and score paths. The fleet phase's launches are those
+its ``learn run`` subprocess journals in ``run_done`` (its replicas journal
+none, and the script's own process launches nothing there).
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -178,6 +198,17 @@ SCORE_GATE_ROWS = 100_000
 SCORE_MAT_ROWS = 20_000
 SCORE_BAD_LINES = 10
 CAPTURE_ROWS = 1427
+# The fleet phase: one burst's patients (32 clients x 50), the stated shadow
+# gates its `learn run` promotes under (the defaults' mean divergence 0.15
+# and score PSI 2 refuse the seeded refit, which moves the scores far from
+# the live model's; p95 0.35 sits at its edge; the other gates stay at their
+# defaults), and a debounce that
+# holds the autoscaler's load decisions off (its spawn, ready deadline and
+# crash respawn are what the phase drives; the policy is held on the CPU).
+FLEET_PATIENTS = 1600
+FLEET_GATES = ["--max-divergence-mean", "0.5", "--max-divergence-p95", "0.6",
+               "--max-score-psi", "50"]
+HOLD_POLLS = 1_000_000
 SHAPE_KEYS = ("n", "F", "K", "folds", "B", "bins", "vals", "launches_per_fit_pipeline",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1335,7 +1366,7 @@ def phase_serve_http(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     out["launches"] = dict(cuda_histogram.LAUNCHES)
     check(not any(out["launches"].values()), f"no hand kernel on the serve path: {out['launches']}")
     emit(out)
-    return out["launches"]
+    return out["launches"], ready_s
 
 
 def write_cohort_jsonl(path: str, X17: np.ndarray, bad_before: list) -> np.ndarray:
@@ -1652,6 +1683,400 @@ def phase_learn(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
                    warm_refit_stage_seconds=refit["stage_seconds"], launches=launches)
     emit(out)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# fleet: the router, the autoscaler, a multi-worker replica, learn run
+# ---------------------------------------------------------------------------
+
+
+def card_apps() -> dict:
+    """``{pid: used MiB}`` of the processes ``nvidia-smi`` lists on the card
+    (a container may list none of its own)."""
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    return {int(r.split(",")[0]): float(r.split(",")[1]) for r in rows if r.strip()}
+
+
+def card_memory() -> str:
+    """The card's used and total memory, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=memory.used,memory.total",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+
+
+def holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a CUDA device node open (``/dev/nvidiaN``):
+    a process that created a CUDA context has; one that never touched the
+    card has not."""
+    import re
+
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(f"{fd_dir}/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            return True
+    return False
+
+
+def http_json(url: str, body=None, timeout: float = 30) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def wait_for(pred, timeout: float, what: str, poll: float = 0.25):
+    """Poll ``pred`` until it returns a true value (returned) or fail."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            got = pred()
+        except OSError:
+            got = None
+        if got:
+            return got
+        check(time.perf_counter() < deadline, f"{what} within {timeout:.0f} s")
+        time.sleep(poll)
+
+
+def burst_stats(res: dict) -> dict:
+    secs = [r[4] for r in res["replies"]]
+    by = {}
+    for r in res["replies"]:
+        by[r[3].get("X-Replica")] = by.get(r[3].get("X-Replica"), 0) + 1
+    return {"requests": len(secs), "requests_per_s": len(secs) / res["seconds"],
+            "p50_ms": 1e3 * quantile(secs, 0.5), "p99_ms": 1e3 * quantile(secs, 0.99),
+            "by_replica": by}
+
+
+def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) -> dict:
+    """The fleet on the card, every process a subprocess of the port's CLI:
+    ``fleet router --capture`` (it must hold no CUDA context); ``fleet
+    autoscale --min 2 --max 3`` spawning two replicas on the card; a
+    ``serve --workers 2 --register`` replica (two processes, one port); a
+    32-client burst through the router (every reply 200 and equal to its
+    version's oracle, every replica serving), through the router with one
+    and two replicas in rotation, and straight at one replica; SIGKILL of an
+    autoscaled replica during a burst (0 non-200; respawned, back in
+    rotation); ``learn run`` retraining on the router's capture and rolling
+    v2 out through it under a 16-client burst (promoted, every replica at
+    v2, both kernel entries launched, read from its journal); ``fleet
+    status`` and ``learn status`` as strict JSON; SIGTERM to everything
+    (exit 0, every replica deregistered). Returns the ``learn run``
+    subprocess's kernel launches: no other process of the fleet launches a
+    hand kernel."""
+    import signal
+    import tempfile
+
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+    from machine_learning_replications_tpu_torch.fleet.lifecycle import RouterClient
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    cuda_histogram.reset_launch_counts()
+    v1 = predict_params(gbdt_params, X17, seed, dev)
+    Xc, _, _ = make_cohort(n=FLEET_PATIENTS, seed=seed + 20)
+    rows = np.ascontiguousarray(Xc[:, selected_indices()], np.float64)
+    rows[:, SELECTED_17.index("Max_Wall_Thick")] += 4.0
+    patients = [{k: float(v) for k, v in zip(SELECTED_17, r)} for r in rows]
+    oracles = {"1": (engine.oracle_proba1(v1, rows), engine.oracle_proba1(
+        convert.params_to(v1, "cpu"), rows), engine.parity_tolerance(v1))}
+    # Measured, not JAX's default: the serve_http phase's `cli serve` cold
+    # start on this card, with room for four processes starting together.
+    ready_deadline = max(60.0, 5.0 * ready_s)
+    out = {"phase": "fleet", "patients": FLEET_PATIENTS, "shifted": "Max_Wall_Thick + 4",
+           "ready_deadline_s": ready_deadline, "cli_serve_ready_s": ready_s,
+           "learn_thresholds": dict(zip(FLEET_GATES[::2], FLEET_GATES[1::2]))}
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "MLR_TPU_PROGRESS": "0"}
+    procs: dict = {}
+    scratch = cuda_histogram.BUILD_DIR.parent
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        model, cap = f"{tmp}/live", f"{tmp}/capture"
+        check(checkpoint.save_model(model, v1) == 1, "the live checkpoint is version 1")
+
+        def spawn(name: str, argv: list):
+            log = open(f"{tmp}/{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "machine_learning_replications_tpu_torch", *argv],
+                stdout=log, stderr=subprocess.STDOUT, text=True, env=env, cwd=root), log)
+            return procs[name][0]
+
+        def tail(name: str) -> str:
+            procs[name][1].flush()
+            return Path(f"{tmp}/{name}.log").read_text()[-3000:]
+
+        def alive(name: str) -> bool:
+            check(procs[name][0].poll() is None, f"{name} exited early: {tail(name)}")
+            return True
+
+        def replicas() -> list:
+            return http_json(f"{rurl}/fleet/replicas")["replicas"]
+
+        def journal(path: str) -> list:
+            with open(path) as f:
+                return [json.loads(line) for line in f]
+
+        try:
+            # 1. the router --------------------------------------------------
+            rport = free_port()
+            rurl = f"http://127.0.0.1:{rport}"
+            t0 = time.perf_counter()
+            router = spawn("router", ["fleet", "router", "--port", str(rport), "--capture", cap,
+                                      "--journal", f"{tmp}/router.jsonl"])
+            wait_for(lambda: alive("router") and http_json(f"{rurl}/healthz"), 60, "the router")
+            out["router_start_s"] = time.perf_counter() - t0
+
+            # 2. two autoscaled replicas and one two-worker replica ---------
+            t0 = time.perf_counter()
+            spawn("autoscale", [
+                "fleet", "autoscale", "--router", rurl, "--model", model, "--min", "2",
+                "--max", "3", "--serve-arg=--device", f"--serve-arg={dev.type}",
+                "--serve-arg=--admin-endpoint", "--replica-journal-dir", f"{tmp}/replicas",
+                "--ready-deadline", f"{ready_deadline:.0f}", "--poll-interval", "1",
+                "--breach-polls", str(HOLD_POLLS), "--idle-polls", str(HOLD_POLLS),
+                "--journal", f"{tmp}/autoscale.jsonl"])
+            wport = free_port()
+            wurl = f"http://127.0.0.1:{wport}"
+            workers = spawn("workers", ["serve", "--model", model, "--device", dev.type,
+                                        "--workers", "2", "--port", str(wport), "--register", rurl,
+                                        "--journal", f"{tmp}/workers.jsonl"])
+            worker_ready, seen = None, {}
+            while len(seen) < 2 or len([r for r in replicas() if r["in_rotation"]]) < 3:
+                for name in ("workers", "autoscale", "router"):
+                    alive(name)
+                check(time.perf_counter() - t0 < ready_deadline + 60,
+                      f"three replicas in rotation: {replicas()}")
+                try:
+                    h = http_json(f"{wurl}/healthz", timeout=5)
+                    if h["ready"]:
+                        worker_ready = worker_ready or time.perf_counter() - t0
+                        seen.setdefault(h["worker"], time.perf_counter() - t0)
+                except OSError:
+                    pass
+                time.sleep(0.25)
+            out["all_in_rotation_s"] = time.perf_counter() - t0
+            ajournal = journal(f"{tmp}/autoscale.jsonl")
+            spawned = {e["replica"]: e for e in ajournal if e["kind"] == "lifecycle_spawn"}
+            out["ready_s"] = {
+                **{e["replica"]: e["seconds"] for e in ajournal if e["kind"] == "lifecycle_ready"},
+                "workers (first 200)": worker_ready,
+                **{f"workers w{k}": s for k, s in sorted(seen.items())}}
+            line = next(ln for ln in tail("workers").splitlines() if "(pids " in ln)
+            worker_pids = json.loads(line.split("(pids ")[1].rstrip(")"))
+            apps = card_apps()
+            smi_used = card_memory()
+            serving = {**{rid: e["pid"] for rid, e in spawned.items()},
+                       **{f"workers w{k}": pid for k, pid in enumerate(worker_pids)}}
+            for name, pid in serving.items():
+                check(holds_card(pid) == (dev.type == "cuda"),
+                      f"serving process {name} (pid {pid}) owns a CUDA context")
+            for name, pid in (("router", router.pid), ("autoscale", procs["autoscale"][0].pid),
+                              ("workers parent", workers.pid)):
+                check(not holds_card(pid) and pid not in apps,
+                      f"the {name} (pid {pid}) owns no CUDA context: nvidia-smi lists {apps}")
+            out["card"] = {"memory_used_total": smi_used, "nvidia_smi_apps_mib": apps,
+                           "serving_pids": serving, "router_pid": router.pid,
+                           "workers_parent_pid": workers.pid,
+                           "nvidia_smi_lists_serving": sorted(set(serving.values()) & set(apps))}
+
+            # 3. bursts: through the router (3, 1 and 2 replicas), direct ----
+            def paths() -> dict:
+                """Each autoscaled replica's ``serve_path_total`` (one process
+                each; a scrape of the two-worker port reaches one worker)."""
+                return {r["id"]: path_split(int(r["url"].rsplit(":", 1)[1]))["paths"]
+                        for r in replicas() if r["id"] in spawned}
+
+            def router_burst(clients, per_client, what, during=None):
+                before = paths()
+                res = burst(rport, patients, clients, per_client, during=during)
+                out.setdefault("checks", {})[what] = check_replies(res["replies"], oracles, what)
+                after = paths()
+                res["paths"] = {rid: {p: n - before.get(rid, {}).get(p, 0) for p, n in c.items()}
+                                for rid, c in after.items()}
+                return res
+
+            res = router_burst(32, 50, "burst")
+            stats = {**burst_stats(res), "paths": res["paths"]}
+            ids = [r["id"] for r in replicas()]
+            check(set(stats["by_replica"]) == set(ids) and all(stats["by_replica"].values()),
+                  f"every replica served the burst: {stats['by_replica']} of {ids}")
+            out["burst"] = {"replicas_3_first": stats}
+            rc = RouterClient(rurl)
+            first = sorted(spawned)[0]
+            # then warm: one replica in rotation, two, all three again
+            for keep in ((first,), tuple(sorted(spawned)), tuple(ids)):
+                held = [i for i in ids if i not in keep]
+                for i in held:
+                    check(rc.hold(i), f"hold {i}")
+                try:
+                    res = router_burst(32, 50, f"burst, {len(keep)} in rotation")
+                    out["burst"][f"replicas_{len(keep)}"] = {**burst_stats(res),
+                                                             "paths": res["paths"]}
+                finally:
+                    for i in held:
+                        check(rc.release(i), f"release {i}")
+            direct = next(r["url"] for r in replicas() if r["id"] == first)
+            res = burst(int(direct.rsplit(":", 1)[1]), patients, 32, 50)
+            out["checks"]["direct"] = check_replies(res["replies"], oracles, "direct burst")
+            out["burst"]["direct_one_replica"] = burst_stats(res)
+
+            # 4. SIGKILL an autoscaled replica under a burst ----------------
+            victim = sorted(spawned)[-1]
+
+            def kill_and_recover():
+                pid = spawned[victim]["pid"]
+                t_kill = time.perf_counter()
+                os.kill(pid, signal.SIGKILL)
+
+                def back():
+                    evs = journal(f"{tmp}/autoscale.jsonl")
+                    again = [e for e in evs if e["kind"] == "lifecycle_ready"
+                             and e["replica"] == victim and e.get("respawn")]
+                    rep = [r for r in replicas() if r["id"] == victim]
+                    return again and rep and rep[0]["in_rotation"] and rep[0]["state"] == "ready"
+
+                wait_for(back, ready_deadline + 60, f"{victim} respawned and back in rotation")
+                evs = journal(f"{tmp}/autoscale.jsonl")
+                return {"replica": victim, "killed_pid": pid,
+                        "recovery_s": time.perf_counter() - t_kill,
+                        "arc": [e["kind"] for e in evs if e.get("replica") == victim]}
+
+            res = router_burst(32, 50, "kill drill", during=kill_and_recover)
+            out["kill_drill"] = {**res["during"], **burst_stats(res)}
+
+            # the two-worker replica leaves: SIGTERM, drained, deregistered
+            # (it cannot take a rolling deploy: no --admin-endpoint with N
+            # workers, as in JAX)
+            workers.send_signal(signal.SIGTERM)
+            check(workers.wait(timeout=120) == 0, f"the workers drain, exit 0: {tail('workers')}")
+            wid = f"127.0.0.1:{wport}"
+            wait_for(lambda: wid not in [r["id"] for r in replicas()], 30,
+                     "the two-worker replica deregistered")
+            check(not any(Path(f"/proc/{p}").exists() for p in worker_pids),
+                  "both workers exited")
+            wdone = [journal(f"{tmp}/workers.jsonl.w{k}")[-1] for k in (0, 1)]
+            check(all(d["kind"] == "run_done" for d in wdone), f"workers' run_done: {wdone}")
+            out["workers_memory"] = {f"w{k}": d.get("cuda_max_memory_allocated_bytes")
+                                     for k, d in enumerate(wdone)}
+
+            # 5. learn run: refit on the capture, roll v2 out under a burst -
+            health = http_json(f"{rurl}/healthz")
+            check(health["capture"]["rows_retained"] >= CAPTURE_ROWS,
+                  f"the router captured >= {CAPTURE_ROWS} rows: {health['capture']}")
+            learn_argv = ["learn", "run", "--device", dev.type, "--model", model, "--capture", cap,
+                          "--router", rurl,
+                          "--schedule", "1", "--max-cycles", "1", "--rows", str(CAPTURE_ROWS),
+                          "--settle-timeout", "0", "--recovery-timeout", "5",
+                          "--poll-interval", "0.5", "--journal", f"{tmp}/learn.jsonl",
+                          *FLEET_GATES]
+
+            def learn_run():
+                t0 = time.perf_counter()
+                proc = spawn("learn", learn_argv)
+                proc.wait(timeout=900)
+                return {"rc": proc.returncode, "seconds": time.perf_counter() - t0}
+
+            res = burst(rport, patients, 16, 50, during=learn_run)
+            check(res["during"]["rc"] == 0, f"learn run exits 0: {tail('learn')}")
+            v2 = checkpoint.load_model(model, device=dev)
+            check(checkpoint.checkpoint_version(model) == 2, "the live path holds version 2")
+            oracles["2"] = (engine.oracle_proba1(v2, rows),
+                            engine.oracle_proba1(convert.params_to(v2, "cpu"), rows),
+                            engine.parity_tolerance(v2))
+            out["checks"]["deploy burst"] = check_replies(res["replies"], oracles, "deploy burst")
+            versions = {}
+            for r in res["replies"]:
+                versions[r[3].get("X-Model-Version")] = versions.get(
+                    r[3].get("X-Model-Version"), 0) + 1
+            ljournal = journal(f"{tmp}/learn.jsonl")
+            cycle = next(e for e in ljournal if e["kind"] == "learn_cycle_done")
+            check(cycle["outcome"] == "promoted", f"learn_cycle_done promoted: {cycle}")
+            promo = next(e for e in ljournal if e["kind"] == "learn_promotion")
+            verdict = next(e for e in ljournal if e["kind"] == "learn_shadow_verdict")
+            wait_for(lambda: all(r["version"] == 2 and r["in_rotation"] for r in replicas()),
+                     30, "every replica at version 2 in rotation")
+            for r in replicas():
+                check(http_json(f"{r['url']}/healthz")["model_version"] == 2,
+                      f"{r['id']} reports version 2")
+            after = router_burst(16, 20, "after the deploy")
+            check(all(r[3].get("X-Model-Version") == "2" for r in after["replies"]),
+                  "every reply after the deploy is version 2")
+            done = ljournal[-1]
+            check(done["kind"] == "run_done", f"learn run's run_done last: {done}")
+            launches = {k: done["torch_kernel_launches_total"].get(k, 0)
+                        for k in ("stump_histograms", "node_histograms")}
+            check(all(launches.values()), f"learn run launched both kernel entries: {launches}")
+            rjournal = journal(f"{tmp}/router.jsonl")
+            steps = next(e for e in rjournal if e["kind"] == "fleet_deploy_done")
+            out["learn"] = {
+                "learn_run_s": res["during"]["seconds"], "cycle": cycle,
+                "verdict": {k: verdict.get(k) for k in (
+                    "passed", "reasons", "rows", "divergence_mean", "divergence_p95",
+                    "flip_rate", "score_psi", "disagreement_delta", "candidate_quality")},
+                "deploy": promo.get("replicas"), "deploy_result": promo.get("deploy_result"),
+                "deploy_done": steps,
+                "deploy_replica_s": {e["replica"]: e.get("seconds") for e in rjournal
+                                     if e["kind"] == "fleet_deploy_replica"},
+                "burst_versions": versions, **burst_stats(res), "launches": launches,
+                "retrain": {k: next(e for e in ljournal if e["kind"] == "learn_retrain_done"
+                                    ).get(k) for k in ("rows", "seconds", "version")}}
+
+            # 6. status, strict JSON -----------------------------------------
+            def no_nan(token):
+                raise ValueError(f"non-strict JSON token {token}")
+
+            for argv in (["fleet", "status", "--router", rurl],
+                         ["learn", "status", "--router", rurl]):
+                proc, secs = run_cli(argv, timeout=120)
+                status = json.loads(proc.stdout, parse_constant=no_nan)
+                out[f"{argv[0]}_status"] = {"seconds": secs, "keys": sorted(status)}
+
+            # 7. SIGTERM everything ------------------------------------------
+            t0 = time.perf_counter()
+            procs["autoscale"][0].send_signal(signal.SIGTERM)
+            check(procs["autoscale"][0].wait(timeout=180) == 0,
+                  f"the autoscaler exits 0: {tail('autoscale')}")
+            check(replicas() == [], f"every replica deregistered: {replicas()}")
+            last_pid = {e["replica"]: e["pid"] for e in journal(f"{tmp}/autoscale.jsonl")
+                        if e["kind"] == "lifecycle_spawn"}
+            check(not any(Path(f"/proc/{p}").exists() for p in last_pid.values()),
+                  f"every autoscaled replica exited: {last_pid}")
+            mem = {}
+            for rid in sorted(spawned):
+                recs = journal(f"{tmp}/replicas/replica_{rid}.jsonl")
+                # run_done is journaled only on the clean way out (drained, exit 0)
+                check(recs[-1]["kind"] == "run_done", f"{rid} drained: {recs[-1]}")
+                mem[rid] = recs[-1].get("cuda_max_memory_allocated_bytes")
+                check(sum(recs[-1]["torch_kernel_launches_total"].values()) == 0,
+                      f"{rid} launched no hand kernel")
+            out["replica_memory"] = {**mem, **out.pop("workers_memory")}
+            router.send_signal(signal.SIGTERM)
+            check(router.wait(timeout=60) == 0, f"the router exits 0: {tail('router')}")
+            out["teardown_s"] = time.perf_counter() - t0
+        finally:
+            for name, (proc, log) in procs.items():
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+                    try:
+                        proc.wait(timeout=60)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+                log.close()
+    out["launches"] = {k: launches.get(k, 0) for k in cuda_histogram.LAUNCHES}
+    check(not any(cuda_histogram.LAUNCHES.values()), "the script's process launched nothing here")
+    emit(out)
+    return out["launches"]
 
 
 def fold_fit_inputs(rows: int, seed: int, dtype: torch.dtype, dev: torch.device):
@@ -2099,11 +2524,14 @@ def main(argv=None) -> int:
     runs.append(phase_serve(gbdt_params, X17, args.seed, dev))
     runs.append(phase_predict(gbdt_params, X17, args.seed, dev))
     torch.cuda.empty_cache()
-    runs.append(phase_serve_http(gbdt_params, X17, args.seed, dev))
+    serve_launches, ready_s = phase_serve_http(gbdt_params, X17, args.seed, dev)
+    runs.append(serve_launches)
     torch.cuda.empty_cache()
     runs.append(phase_score(gbdt_params, X17, args.seed, dev))
     torch.cuda.empty_cache()
     runs.append(phase_learn(gbdt_params, X17, args.seed, dev))
+    torch.cuda.empty_cache()
+    runs.append(phase_fleet(gbdt_params, X17, args.seed, ready_s, dev))
     torch.cuda.empty_cache()
     runs.append(phase_cli(args.sweep_rows, args.seed, dev))
     torch.cuda.empty_cache()

@@ -14,15 +14,18 @@
         --pkl PICKLE --out DIR [--device cpu|cuda]
     python -m machine_learning_replications_tpu_torch serve \\
         [--model DIR | --pkl PICKLE] [--host H] [--port P] [--buckets LADDER] \\
+        [--workers N] [--register ROUTER_URL] [--advertise URL] \\
         [serving, resilience, alerting flags as the JAX CLI's] \\
         [--trace-dir DIR] [--journal JSONL] [--device cpu|cuda]
+    python -m machine_learning_replications_tpu_torch fleet router|deploy|autoscale|status \\
+        [the JAX CLI's fleet flags]
     python -m machine_learning_replications_tpu_torch score \\
         (--model DIR | --pkl PICKLE) --cohort JSONL|MAT --out DIR \\
         [--chunk-rows N] [--prefetch N] [--parse-workers N] [--parse-procs N] \\
         [the JAX CLI's other score flags] [--device cpu|cuda]
-    python -m machine_learning_replications_tpu_torch learn retrain|shadow \\
-        --model DIR --capture DIR [--candidate DIR] [the JAX CLI's learn flags] \\
-        [--device cpu|cuda]
+    python -m machine_learning_replications_tpu_torch learn run|retrain|shadow|promote|status \\
+        --model DIR [--capture DIR] [--router URL] [--candidate DIR] \\
+        [the JAX CLI's learn flags] [--device cpu|cuda]
 
 ``train`` is ``train_ensemble_public.py``: it fits the full pipeline
 (impute → LassoCV top-17 → stacking ensemble → quality profile) on the
@@ -54,9 +57,17 @@ checkpoint.
 ``/healthz``, ``/readyz``, ``/metrics``, ``/debug/*``, ``/admin/deploy``) on
 the port's engine: one CUDA graph per bucket on the card, the host fast
 path on the CPU, supervised, drained on SIGTERM. Like ``predict`` it needs
-``--model`` or ``--pkl``. Not ported yet (ROADMAP item 8b): ``--workers``
-above 1, ``--register``/``--advertise``, ``--no-aot`` and
-``--xla-intra-op-threads``.
+``--model`` or ``--pkl``. ``--workers N`` runs N ``SO_REUSEPORT`` workers on
+one port, each a fresh interpreter with its own CUDA context (the parent
+never touches the card); ``--register`` announces the replica to a fleet
+router and deregisters it on SIGTERM; ``--no-aot`` is accepted and
+journaled (the port publishes no executable bundle).
+
+``fleet router|deploy|autoscale|status`` are the JAX CLI's fleet tier: a
+front-door router over registered replicas (retries, hedging, shedding,
+the capture tap), rolling deploys through it, an autoscaler that spawns
+and retires ``serve`` replicas of this package, and a status snapshot.
+None of them imports torch or touches the card.
 
 ``score`` streams a cohort file (JSONL patient dicts or a reference-layout
 ``.mat``) through the overlapped ingest → device pipeline (``score/``) into
@@ -65,16 +76,17 @@ sharded, resumable output, as the JAX CLI's does; its ``--mesh`` and
 N`` bounds torch's host threads (``torch.set_num_threads``). ``learn
 retrain`` refits the live checkpoint's family on captured traffic into a
 versioned candidate, ``learn shadow`` replays the capture through both and
-prints the verdict; ``learn run``, ``promote`` and ``status`` talk to a
-fleet router and exit naming ROADMAP item 8b.
+prints the verdict, ``learn promote`` applies a verdict (publish and roll
+out through the router, or park), ``learn run`` is the closed loop over
+all three, and ``learn status`` reports the fleet's quality and capture.
 
 ``--trace-dir`` and ``--journal`` (``train``, ``predict``, ``serve``,
-``score``, ``learn``) write the run's
+``score``, ``learn``; ``fleet router|autoscale`` journal only) write the run's
 spans as a Chrome trace (``<dir>/trace.json``) and a JSONL journal (a
 manifest first, then stage and checkpoint events, ``run_done`` last, with
-the run's ``obs.torchmon`` totals). Every command runs on the card unless
-``--device cpu`` is given; without CUDA it exits with an error instead of
-moving to the CPU.
+the run's ``obs.torchmon`` totals). Every command that computes runs on the
+card unless ``--device cpu`` is given; without CUDA it exits with an error
+instead of moving to the CPU.
 """
 
 from __future__ import annotations
@@ -86,13 +98,14 @@ import os
 import sys
 
 import numpy as np
-import torch
-
-from machine_learning_replications_tpu_torch.device import resolve_device
 
 
 def _device(args, command: str) -> torch.device:
-    """``--device`` resolved, or exit naming the command (no CUDA)."""
+    """``--device`` resolved, or exit naming the command (no CUDA). torch is
+    imported here, not at the module's top: the fleet's router, autoscaler
+    and status commands run without it."""
+    from machine_learning_replications_tpu_torch.device import resolve_device
+
     try:
         return resolve_device(args.device)
     except RuntimeError as exc:
@@ -158,13 +171,15 @@ def _config(args):
 
 
 @contextlib.contextmanager
-def _observed(args, command: str, config_json: str | None = None):
+def _observed(args, command: str, config_json: str | None = None,
+              manifest_extra: dict | None = None):
     """The observability layer for one CLI run: ``obs.torchmon`` accounting
     into the global registry, an active tracer when ``--trace-dir`` is given
     (``trace.json`` written on exit), an active journal when ``--journal``
     is given (manifest first, then structured events, ``run_done`` with the
     torchmon totals or ``run_error`` last), and a root span named after the
-    command, so every stage nests under it."""
+    command, so every stage nests under it. The body may add fields to
+    ``run_done`` through the dict it is given."""
     from machine_learning_replications_tpu_torch.obs import journal, spans, torchmon
 
     tracer = jrn = None
@@ -174,23 +189,25 @@ def _observed(args, command: str, config_json: str | None = None):
     # touching the process-global slots: a failed setup must not leave a
     # stale global absorbing later spans in in-process callers.
     if args.journal:
-        jrn = journal.RunJournal(args.journal, command=command, config_json=config_json)
+        jrn = journal.RunJournal(args.journal, command=command, config_json=config_json,
+                                 extra=manifest_extra)
     if args.trace_dir:
         tracer = spans.Tracer(process_name=f"mlr-torch {command}")
     if jrn is not None:
         journal.set_journal(jrn)
     if tracer is not None:
         spans.set_tracer(tracer)
+    done: dict = {}
     try:
         with spans.span(command):
-            yield
+            yield done
     except BaseException as exc:
         if jrn is not None:
             jrn.event("run_error", error=f"{type(exc).__name__}: {exc}")
         raise
     else:
         if jrn is not None:
-            jrn.event("run_done", **torchmon.totals())
+            jrn.event("run_done", **torchmon.totals(), **done)
     finally:
         if jrn is not None:
             journal.set_journal(None)
@@ -272,21 +289,67 @@ def _run_predict(args, dev: torch.device) -> int:
     return 0
 
 
+def _intra_op_threads(requested: int | None) -> int | None:
+    """The JAX CLI's ``--xla-intra-op-threads`` policy for serving, applied
+    to torch's host intra-op pool (``torch.set_num_threads``; the host path
+    and the CPU engine run there): a host-sized default, ``min(4, cores/2)``
+    with a floor of 1, so a flush's burst across every core does not starve
+    the event loop; ``0`` leaves torch alone. Returns the count applied (the
+    serve manifest journals it), or None."""
+    if requested is not None and requested < 0:
+        raise SystemExit("--xla-intra-op-threads must be >= 0")
+    if requested == 0:
+        return None
+    import torch
+
+    n = requested if requested else max(1, min(4, (os.cpu_count() or 2) // 2))
+    torch.set_num_threads(n)
+    return n
+
+
 def cmd_serve(args) -> int:
     """Micro-batched HTTP inference serving (the JAX CLI's ``serve``)."""
-    dev = _device(args, "serve")
-    if args.workers > 1:
+    worker_id = args.worker_id
+    if args.workers > 1 and args.admin_endpoint:
+        # A deploy POST through the shared SO_REUSEPORT port would land
+        # on ONE worker and leave the others on the old version — a
+        # silently mixed-version replica. Multi-worker replicas deploy by
+        # rolling restart.
         raise SystemExit(
-            "serve: --workers above 1 (pre-fork SO_REUSEPORT workers) is not "
-            "ported yet (ROADMAP item 8b): a fork after CUDA is initialised is "
-            "undefined; run one worker per process"
+            "--admin-endpoint is incompatible with --workers N: an "
+            "in-place deploy would reach only one SO_REUSEPORT worker; "
+            "deploy multi-worker replicas by rolling restart instead"
         )
+    if args.workers > 1 and args.incident_dir:
+        # N worker processes sharing one bundle directory would race the
+        # timestamped dir names and each other's retention pruning.
+        raise SystemExit(
+            "--incident-dir is not supported with --workers > 1: the "
+            "capture directory is single-writer (run one worker, or "
+            "capture at the router)"
+        )
+    if args.workers > 1 and worker_id is None:
+        # Before anything touches the card: the parent only supervises and
+        # must own no CUDA context.
+        return _run_multiworker(args)
+    dev = _device(args, "serve")
     if not (args.model or args.pkl):
         from machine_learning_replications_tpu_torch.persist import sklearn_import
 
         raise SystemExit(f"serve: {sklearn_import.NO_DEFAULT_PKL}")
+    threads = _intra_op_threads(args.xla_intra_op_threads)
+    if threads is not None:
+        print(f"torch intra-op threads: {threads} (override with "
+              "--xla-intra-op-threads, 0 leaves torch alone)", file=sys.stderr)
+    if worker_id is not None:
+        if args.journal:
+            args.journal = f"{args.journal}.w{worker_id}"
+        if args.trace_dir:
+            args.trace_dir = os.path.join(args.trace_dir, f"w{worker_id}")
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    # The knobs that shape serving behaviour, for the manifest's config hash.
+    # The knobs that shape serving behaviour, for the manifest's config
+    # hash. The worker id is NOT part of it — all workers of one deployment
+    # share a config hash; identity rides the manifest extra instead.
     serve_cfg = json.dumps({
         "buckets": list(buckets), "max_batch": args.max_batch,
         "max_wait_ms": args.max_wait_ms, "max_queue": args.max_queue,
@@ -315,16 +378,117 @@ def cmd_serve(args) -> int:
         "max_connections": args.max_connections,
         "host_path": not args.no_host_path,
         "host_workers": args.host_workers,
+        "no_aot": args.no_aot,
         "replica_id": args.replica_id,
+        "register": args.register,
         "admin_endpoint": args.admin_endpoint,
+        "xla_intra_op_threads": threads,
         "history_interval_s": args.history_interval,
         "alert_rules": args.alert_rules,
         "no_alerts": args.no_alerts,
         "incident_dir": args.incident_dir,
         "device": str(dev),
     }, sort_keys=True)
-    with _observed(args, "serve", config_json=serve_cfg):
-        return _run_serve(args, buckets, dev)
+    extra = {}
+    if worker_id is not None:
+        extra.update(worker=worker_id, workers=args.workers)
+    if threads is not None:
+        extra["xla_intra_op_threads"] = threads
+    with _observed(args, "serve", config_json=serve_cfg, manifest_extra=extra or None) as done:
+        rc = _run_serve(args, buckets, dev)
+        if dev.type == "cuda":
+            # This process's peak allocation on the card (parameters, the
+            # graphs' memory pools, staging buffers), for sizing a fleet.
+            import torch
+
+            done["cuda_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        return rc
+
+
+def _run_multiworker(args) -> int:
+    """``SO_REUSEPORT`` multi-worker serving: N workers, each a fresh
+    interpreter running this same ``serve`` command with a private
+    ``--worker-id K``, bind the same port; the kernel spreads connections
+    across them. Each worker loads the checkpoint, creates its own CUDA
+    context and captures its own graphs — the JAX CLI forks instead, which
+    a process that initialised CUDA cannot do, so the parent here never
+    touches the card. The parent only supervises: it forwards SIGTERM and
+    SIGINT (each worker drains) and stops the rest if any worker dies
+    unexpectedly, so a half-dead deployment never lingers. Per-worker
+    journals get a ``.wK`` suffix and trace dirs a ``wK`` subdirectory;
+    ``/metrics`` carries ``serve_worker_info{worker=K}``."""
+    import signal
+    import subprocess
+    import time
+
+    if args.port == 0:
+        # Port 0 would give every worker a DIFFERENT ephemeral port;
+        # SO_REUSEPORT sharding needs one concrete shared port.
+        raise SystemExit("--workers requires a fixed --port (not 0): "
+                         "all workers bind the same SO_REUSEPORT port")
+    # The workers import this very package, wherever the parent was started.
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    children = [
+        subprocess.Popen(
+            [sys.executable, "-m", "machine_learning_replications_tpu_torch", *args.argv,
+             "--worker-id", str(k)],
+            env=env, preexec_fn=_term_with_parent,
+        )
+        for k in range(args.workers)
+    ]
+    print(
+        f"serving with {args.workers} SO_REUSEPORT workers on port "
+        f"{args.port} (pids {[c.pid for c in children]})",
+        file=sys.stderr, flush=True,
+    )
+    shutting_down = False
+
+    def _forward(signum, frame):
+        nonlocal shutting_down
+        shutting_down = True
+        for c in children:
+            if c.poll() is None:
+                c.send_signal(signal.SIGTERM)
+
+    signal.signal(signal.SIGTERM, _forward)
+    signal.signal(signal.SIGINT, _forward)
+    rc = 0
+    alive = set(children)
+    while alive:
+        for c in list(alive):
+            code = c.poll()
+            if code is None:
+                continue
+            alive.discard(c)
+            code = code if code >= 0 else 128 - code
+            rc = max(rc, code)
+            if code != 0 and not shutting_down and alive:
+                # One worker died outside a deliberate shutdown: take the
+                # rest down too — a silently shrunken replica would serve at
+                # reduced capacity while looking healthy from the port.
+                print(f"worker pid {c.pid} exited {code}; stopping the fleet",
+                      file=sys.stderr)
+                _forward(None, None)
+        time.sleep(0.05)
+    return rc
+
+
+def _term_with_parent() -> None:
+    """In a worker, before it runs: ask Linux to SIGTERM it when the parent
+    dies, so a parent killed outright (SIGKILL) leaves no worker holding
+    the port and the card. Elsewhere a no-op."""
+    if not sys.platform.startswith("linux"):
+        return
+    import ctypes
+    import signal
+
+    PR_SET_PDEATHSIG = 1
+    prctl = ctypes.CDLL(None, use_errno=True).prctl
+    prctl.argtypes = [ctypes.c_int] + [ctypes.c_ulong] * 4
+    prctl.restype = ctypes.c_int
+    prctl(PR_SET_PDEATHSIG, int(signal.SIGTERM), 0, 0, 0)
 
 
 def _load_alert_rules(path):
@@ -359,6 +523,9 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
     # The checkpoint's monotonic version rides every reply as
     # X-Model-Version, from the directory that ACTUALLY loaded (a corrupt
     # primary rolls back to its last-known-good); a pickle is unversioned.
+    # The port publishes no AOT executable bundle (--no-aot is accepted and
+    # journaled): every checkpoint is served by capturing its graphs, as
+    # the JAX replicas serve a checkpoint without a bundle.
     model_version = None
     try:
         if args.model:
@@ -370,6 +537,8 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
             params = load_inference_params(pkl=args.pkl, device=dev)
     except FileNotFoundError as exc:
         raise SystemExit(f"serve: {exc}")
+    replica_id = args.replica_id
+    worker_id = args.worker_id
     handle = make_server(
         params,
         host=args.host,
@@ -403,10 +572,14 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
         fault_endpoint=bool(args.inject or args.fault_endpoint),
         idle_timeout_s=args.idle_timeout,
         max_connections=args.max_connections,
+        # Multi-worker mode: every worker binds the same port with
+        # SO_REUSEPORT; the kernel spreads connections across them.
+        reuse_port=args.workers > 1,
+        worker_id=worker_id,
         host_path=not args.no_host_path,
         host_workers=args.host_workers,
         model_version=model_version,
-        replica_id=args.replica_id,
+        replica_id=replica_id,
         admin_endpoint=args.admin_endpoint,
         history_interval_s=args.history_interval,
         alert_rules=(
@@ -423,12 +596,33 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
     gc.collect()
     gc.freeze()
     host, port = handle.address
+    if replica_id is None and (args.register or args.advertise):
+        # Default id from the BOUND address, not args.port: with --port 0
+        # every replica would otherwise register as HOST:0 — same id,
+        # different urls — and each one's heartbeat would replace the
+        # other in the registry forever.
+        replica_id = f"{host}:{port}"
+        handle.replica_id = replica_id
     print(
         f"serving {type(params).__name__} on http://{host}:{port} "
         f"(device {dev}, buckets {buckets}, max_wait {args.max_wait_ms}ms, "
-        f"queue bound {args.max_queue})",
+        f"queue bound {args.max_queue}"
+        + (f", worker {worker_id}/{args.workers}" if worker_id is not None else "")
+        + ")",
         file=sys.stderr, flush=True,
     )
+    # Fleet registration: announce this replica to the front-door router
+    # (POST /fleet/replicas) on a background thread that retries until the
+    # router answers — replicas and router may start in any order. A
+    # multi-worker replica registers once (worker 0): the SO_REUSEPORT
+    # workers share one port and are one logical replica.
+    advertise = args.advertise or f"http://{host}:{port}"
+    registers = bool(args.register) and worker_id in (None, 0)
+    if registers:
+        threading.Thread(
+            target=_register_loop, args=(handle, args.register, replica_id, advertise),
+            name="serve-register", daemon=True,
+        ).start()
 
     def _graceful(signum, frame):
         print("draining and shutting down ...", file=sys.stderr)
@@ -442,7 +636,52 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
         handle.serve_forever()
     finally:
         handle.shutdown()
+        if registers:
+            # Best-effort deregistration: a drained replica should leave
+            # the rotation table instead of waiting out probe failures.
+            try:
+                _post_json(args.register.rstrip("/") + "/fleet/replicas",
+                           {"deregister": replica_id})
+            except Exception:
+                pass
     return 0
+
+
+def _post_json(url: str, body: dict, timeout: float = 5.0) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read()
+
+
+def _register_loop(handle, router: str, replica_id: str, advertise: str) -> None:
+    """The registration heartbeat, not a one-shot: registration is
+    idempotent (same id + url keeps the router's rotation state), so
+    re-posting every beat means a RESTARTED router — whose in-memory
+    registry came up empty — repopulates within one interval. Journals
+    ``replica_registered`` each time registration (re)succeeds."""
+    import time
+
+    from machine_learning_replications_tpu_torch.obs import journal
+
+    url = router.rstrip("/") + "/fleet/replicas"
+    registered = False
+    while not handle.draining:
+        try:
+            _post_json(url, {"id": replica_id, "url": advertise})
+        except Exception:
+            registered = False
+            time.sleep(1.0)
+            continue
+        if not registered:
+            registered = True
+            journal.event("replica_registered", router=router, replica=replica_id,
+                          url=advertise)
+            print(f"registered with router {router} as {replica_id!r} ({advertise})",
+                  file=sys.stderr, flush=True)
+        time.sleep(10.0)
 
 
 def cmd_sweep(args) -> int:
@@ -510,6 +749,8 @@ def cmd_score(args) -> int:
     if args.xla_intra_op_threads:
         # The JAX CLI bounds XLA's CPU pool; the port's host-side math
         # (parse, impute prep, the CPU engine) runs on torch's intra-op pool.
+        import torch
+
         torch.set_num_threads(args.xla_intra_op_threads)
         print(f"torch intra-op threads: {args.xla_intra_op_threads}", file=sys.stderr)
     if not (args.model or args.pkl):
@@ -624,6 +865,402 @@ def _write_score_metrics(args) -> None:
     print(f"metrics written to {args.metrics_out}", file=sys.stderr)
 
 
+def cmd_fleet(args) -> int:
+    """Fleet tier: front-door router, rolling deploys, the autoscaler
+    daemon, and fleet status — the `cli fleet ROLE` entry points, as the
+    JAX CLI's. None imports torch or touches the card: a router or
+    autoscaler process needs no accelerator stack (the replicas it spawns
+    pay that cost in their own processes), and the router's ``--workers``
+    may fork freely."""
+    if args.role == "router":
+        return _run_fleet_router(args)
+    if args.role == "deploy":
+        return _run_fleet_deploy(args)
+    if args.role == "autoscale":
+        return _run_fleet_autoscale(args)
+    return _run_fleet_status(args)
+
+
+def _run_fleet_router(args) -> int:
+    import signal
+    import threading
+
+    from machine_learning_replications_tpu_torch.fleet import make_router
+    from machine_learning_replications_tpu_torch.obs import journal
+
+    replicas = []
+    for spec in args.replica or []:
+        rid, sep, url = spec.partition("=")
+        if not sep or not rid or not url:
+            raise SystemExit(
+                f"--replica expects ID=URL, got {spec!r}"
+            )
+        replicas.append((rid, url))
+    worker_id = getattr(args, "_worker_id", None)
+    if args.workers > 1 and worker_id is None:
+        return _run_router_multiworker(args)
+    jrn = None
+    if args.journal:
+        # Deliberately not _observed: that path installs the torch
+        # accounting, and the router must stay torch-free.
+        jrn = journal.RunJournal(args.journal, command="fleet router")
+        journal.set_journal(jrn)
+    handle = make_router(
+        host=args.host,
+        port=args.port,
+        replicas=replicas,
+        request_timeout_s=args.request_timeout,
+        hedge_ms=args.hedge_ms,
+        max_attempts=args.max_attempts,
+        probe_interval_s=args.probe_interval,
+        probe_timeout_s=args.probe_timeout,
+        fail_threshold=args.fail_threshold,
+        recover_probes=args.recover_probes,
+        breaker_failures=args.breaker_failures,
+        reuse_port=args.workers > 1,
+        quiet=not args.verbose,
+        capture_dir=args.capture,
+        capture_rows_per_shard=args.capture_rows_per_shard,
+        capture_max_shards=args.capture_max_shards,
+        history_interval_s=args.history_interval,
+        alert_rules=(
+            _load_alert_rules(args.alert_rules) if args.alert_rules
+            else None
+        ),
+        alerts_enabled=not args.no_alerts,
+        incident_dir=args.incident_dir,
+        incident_min_interval_s=args.incident_min_interval,
+        incident_retention=args.incident_retention,
+    )
+    host, port = handle.address
+    who = f" (worker {worker_id})" if worker_id is not None else ""
+    print(
+        f"fleet router on http://{host}:{port}{who} "
+        f"({len(replicas)} static replicas; POST /fleet/replicas to "
+        "register more)",
+        file=sys.stderr,
+    )
+
+    def _graceful(signum, frame):
+        print("router shutting down ...", file=sys.stderr)
+        threading.Thread(target=handle.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    try:
+        handle.serve_forever()
+    finally:
+        handle.shutdown()
+        if jrn is not None:
+            journal.set_journal(None)
+            jrn.close()
+            print(f"journal written to {jrn.path}", file=sys.stderr)
+    return 0
+
+
+def _run_router_multiworker(args) -> int:
+    """Pre-fork ``SO_REUSEPORT`` multi-worker routing for many-core
+    hosts: N router processes each run their own loop (listener AND
+    upstream pool) on one shared port; the kernel spreads inbound
+    connections across them. Each worker keeps its own registry — the
+    replicas' periodic registration heartbeats (fresh connection per
+    beat, so the kernel rotates them across workers) converge every
+    worker's membership within a few beats, and static ``--replica``
+    seeds apply to all workers at fork. The parent only supervises,
+    exactly like ``cli serve --workers``."""
+    import signal
+
+    if args.port == 0:
+        raise SystemExit("--workers requires a fixed --port (not 0): "
+                         "all workers bind the same SO_REUSEPORT port")
+    if args.capture:
+        # N workers appending to one rotating shard window would
+        # interleave rotations and tear the capture contract; the tap
+        # stays a single-worker feature.
+        raise SystemExit("--capture is not supported with --workers > 1 "
+                         "(run a single-worker capture router)")
+    if args.incident_dir:
+        # Same single-writer contract as --capture: timestamped bundle
+        # dirs and retention pruning from N processes would race.
+        raise SystemExit("--incident-dir is not supported with "
+                         "--workers > 1 (run a single-worker alerting "
+                         "router)")
+    children: list[int] = []
+    for k in range(args.workers):
+        pid = os.fork()
+        if pid == 0:
+            rc = 1
+            try:
+                args._worker_id = k
+                if args.journal:
+                    args.journal = f"{args.journal}.w{k}"
+                rc = _run_fleet_router(args)
+            except SystemExit as exc:
+                rc = exc.code if isinstance(exc.code, int) else 1
+            except BaseException:
+                import traceback
+
+                traceback.print_exc()
+                rc = 1
+            finally:
+                os._exit(rc or 0)
+        children.append(pid)
+    print(
+        f"fleet router with {args.workers} SO_REUSEPORT workers on port "
+        f"{args.port} (pids {children})",
+        file=sys.stderr,
+    )
+    shutting_down = False
+
+    def _forward(signum, frame):
+        nonlocal shutting_down
+        shutting_down = True
+        for pid in children:
+            try:
+                os.kill(pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+
+    signal.signal(signal.SIGTERM, _forward)
+    signal.signal(signal.SIGINT, _forward)
+    rc = 0
+    alive = set(children)
+    while alive:
+        try:
+            pid, status = os.waitpid(-1, 0)
+        except InterruptedError:
+            continue
+        except ChildProcessError:
+            break
+        if pid not in alive:
+            continue
+        alive.discard(pid)
+        code = (
+            os.WEXITSTATUS(status) if os.WIFEXITED(status)
+            else 128 + os.WTERMSIG(status)
+        )
+        rc = max(rc, code)
+        if code != 0 and not shutting_down and alive:
+            print(
+                f"router worker pid {pid} exited {code}; stopping the "
+                "rest", file=sys.stderr,
+            )
+            _forward(None, None)
+    return rc
+
+
+def _run_fleet_autoscale(args) -> int:
+    """The elastic-fleet daemon: watch the router's load signals,
+    spawn/retire local replica processes (``cli serve`` of this package)
+    through the drain-first lifecycle manager, replace crashed ones.
+    torch-free — the spawned replicas bring their own accelerator stack."""
+    import signal
+    import threading
+    import time
+
+    from machine_learning_replications_tpu_torch.fleet.autoscale import (
+        AutoscaleDaemon,
+        AutoscalePolicy,
+        AutoscaleThresholds,
+    )
+    from machine_learning_replications_tpu_torch.fleet.lifecycle import (
+        LifecycleManager,
+        ReplicaSpec,
+        RouterClient,
+    )
+    from machine_learning_replications_tpu_torch.obs import journal
+    from machine_learning_replications_tpu_torch.resilience import faults
+
+    for spec_text in args.inject or []:
+        try:
+            armed = faults.arm(spec_text)
+        except ValueError as exc:
+            raise SystemExit(f"--inject: {exc}")
+        print(f"fault armed: {armed.describe()}", file=sys.stderr)
+    jrn = None
+    if args.journal:
+        # Not _observed: the autoscaler must stay torch-free (the
+        # router's reasoning — no torch accounting in this process).
+        jrn = journal.RunJournal(args.journal, command="fleet autoscale")
+        journal.set_journal(jrn)
+    say = lambda m: print(f"autoscale: {m}", file=sys.stderr)  # noqa: E731
+    spec = ReplicaSpec(
+        model=args.model,
+        register_url=args.router,
+        host=args.replica_host,
+        serve_args=tuple(args.serve_arg or []),
+        journal_dir=args.replica_journal_dir,
+        no_aot=args.no_aot,
+    )
+    try:
+        manager = LifecycleManager(
+            spec,
+            RouterClient(args.router),
+            min_replicas=args.min,
+            max_replicas=args.max,
+            ready_deadline_s=args.ready_deadline,
+            drain_settle_s=args.drain_settle,
+            term_deadline_s=args.term_deadline,
+            respawn_backoff_s=args.respawn_backoff,
+            respawn_backoff_max_s=args.respawn_backoff_max,
+            say=say,
+        )
+        policy = AutoscalePolicy(
+            thresholds=AutoscaleThresholds(
+                out_queue_depth=args.out_queue_depth,
+                out_latency_ms=args.out_latency_ms,
+                out_shed_rate=args.out_shed_rate,
+                out_burn_rate=args.out_burn_rate,
+                in_queue_depth=args.in_queue_depth,
+                in_latency_ms=args.in_latency_ms,
+                in_shed_rate=args.in_shed_rate,
+                in_burn_rate=args.in_burn_rate,
+                out_alerts_active=args.out_alerts_active,
+                in_alerts_active=args.in_alerts_active,
+            ),
+            min_replicas=args.min,
+            max_replicas=args.max,
+            breach_polls=args.breach_polls,
+            idle_polls=args.idle_polls,
+            cooldown_s=args.cooldown,
+            step=args.step,
+        )
+    except ValueError as exc:
+        # Bad bounds/thresholds are operator input, not a crash.
+        raise SystemExit(f"fleet autoscale: {exc}")
+    daemon = AutoscaleDaemon(
+        args.router, manager, policy,
+        poll_interval_s=args.poll_interval, say=say,
+    )
+    manager.scale_to(args.min)
+    print(
+        f"autoscaling {args.min}..{args.max} replicas of {args.model} "
+        f"behind {args.router} (poll every {args.poll_interval:g}s)",
+        file=sys.stderr,
+    )
+    stop = {"now": False}
+
+    def _stop(signum, frame):
+        stop["now"] = True
+        print("autoscale: stopping after the current tick ...",
+              file=sys.stderr)
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    try:
+        daemon.run(stop_check=lambda: stop["now"],
+                   max_ticks=args.max_ticks)
+    finally:
+        if args.leave_running:
+            print(
+                "autoscale: leaving managed replicas running "
+                "(--leave-running)", file=sys.stderr,
+            )
+        else:
+            # Default teardown takes the managed fleet down with the
+            # daemon: orphaned children would keep serving unmanaged —
+            # alive but outside every control loop this command exists
+            # to provide.
+            closer = threading.Thread(target=manager.close, daemon=True)
+            closer.start()
+            closer.join(timeout=args.term_deadline + args.drain_settle + 5)
+        if args.metrics_out:
+            from machine_learning_replications_tpu_torch.obs.registry import (
+                REGISTRY,
+            )
+
+            with open(args.metrics_out, "w") as f:
+                f.write(REGISTRY.render_prometheus())
+            print(f"metrics written to {args.metrics_out}",
+                  file=sys.stderr)
+        if jrn is not None:
+            journal.set_journal(None)
+            jrn.close()
+            print(f"journal written to {jrn.path}", file=sys.stderr)
+    return 0
+
+
+def _run_fleet_deploy(args) -> int:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        args.router.rstrip("/") + "/fleet/deploy",
+        data=json.dumps({"model": args.model}).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=args.timeout) as resp:
+            report = json.loads(resp.read())["deploy"]
+    except urllib.error.HTTPError as exc:
+        body = exc.read()
+        try:
+            payload = json.loads(body)
+        except ValueError:
+            payload = None
+        if not isinstance(payload, dict):
+            raise SystemExit(
+                f"deploy request failed (http {exc.code}): "
+                f"{body[:200]!r}"
+            )
+        if exc.code == 409:
+            # Single-flight refusal: the "deploy" in this body is the
+            # OTHER rollout's live status (result "ok" from the moment
+            # it starts) — treating it as ours would print success for
+            # a deploy that never began.
+            raise SystemExit(
+                "deploy refused: a rolling deploy is already in "
+                "progress — watch it with `fleet status`:\n"
+                + json.dumps(payload.get("deploy"), indent=1)
+            )
+        report = payload.get("deploy")
+        if not isinstance(report, dict):
+            raise SystemExit(
+                f"deploy request failed (http {exc.code}): "
+                f"{body[:200]!r}"
+            )
+    except (urllib.error.URLError, OSError) as exc:
+        # Unreachable router / reset / client-side timeout: a clean exit
+        # beats a traceback. NOTE a timed-out POST does not stop the
+        # rollout server-side — `fleet status` shows where it got to.
+        raise SystemExit(
+            f"deploy request to {args.router} failed: {exc} "
+            "(the rollout may still be running; check `fleet status`)"
+        )
+    print(json.dumps(report, indent=1))
+    if report.get("result") != "ok":
+        print(
+            f"rollout {report.get('result')}: "
+            f"{report.get('error', 'no detail')}",
+            file=sys.stderr,
+        )
+        return 1
+    print(
+        f"rollout ok: version {report.get('target_version')} on "
+        f"{len(report.get('replicas', []))} replicas",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _run_fleet_status(args) -> int:
+    import urllib.error
+    import urllib.request
+
+    base = args.router.rstrip("/")
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(
+            base + "/fleet/replicas", timeout=10
+        ) as resp:
+            replicas = json.loads(resp.read())["replicas"]
+    except (urllib.error.URLError, OSError) as exc:
+        raise SystemExit(f"fleet status request to {args.router} failed: {exc}")
+    print(json.dumps({"router": health, "replicas": replicas}, indent=1))
+    return 0
+
+
 def _learn_thresholds(args):
     from machine_learning_replications_tpu_torch.learn.shadow import ShadowThresholds
 
@@ -644,26 +1281,74 @@ def _candidate_default(model: str) -> str:
 
 
 def cmd_learn(args) -> int:
-    """Continual learning, the offline half: ``retrain`` and ``shadow``."""
-    if args.role in ("run", "promote", "status"):
-        raise SystemExit(
-            f"learn {args.role}: not ported yet — it talks to a fleet router "
-            "(learn/{trigger,promote,loop}.py), which comes with the fleet "
-            "slice (ROADMAP item 8b)"
-        )
-    dev = _device(args, f"learn {args.role}")
+    """Continual learning: drift-triggered retraining, shadow evaluation
+    and guarded promotion — the `cli learn ROLE` entry points, as the JAX
+    CLI's. ``status`` imports no torch (it only asks the router and its
+    replicas); ``promote`` republishes a checkpoint on the CPU and drives
+    the router; ``run``, ``retrain`` and ``shadow`` fit and replay on
+    ``--device``."""
+    if args.role == "status":
+        return _run_learn_status(args)
+    dev = None if args.role == "promote" else _device(args, f"learn {args.role}")
     cfg = _config(args) if getattr(args, "config", None) else None
     learn_cfg = json.dumps({
         "role": args.role,
         "model": args.model,
-        "capture": args.capture,
+        "capture": getattr(args, "capture", None),
         "candidate": args.candidate,
-        "device": str(dev),
+        "router": getattr(args, "router", None),
+        "device": None if dev is None else str(dev),
     }, sort_keys=True)
     with _observed(args, f"learn {args.role}", config_json=learn_cfg):
+        if args.role == "run":
+            return _run_learn_loop(args, cfg, dev)
         if args.role == "retrain":
             return _run_learn_retrain(args, cfg, dev)
-        return _run_learn_shadow(args, dev)
+        if args.role == "shadow":
+            return _run_learn_shadow(args, dev)
+        return _run_learn_promote(args)
+
+
+def _run_learn_loop(args, cfg, dev: torch.device) -> int:
+    import signal
+
+    from machine_learning_replications_tpu_torch.learn.loop import LearnLoop
+    from machine_learning_replications_tpu_torch.learn.trigger import TriggerPolicy
+
+    loop = LearnLoop(
+        model_path=args.model,
+        capture_dir=args.capture,
+        candidate_dir=args.candidate or _candidate_default(args.model),
+        router_url=args.router,
+        policy=TriggerPolicy(
+            alert_streak=args.alert_streak,
+            cooldown_s=args.cooldown,
+            schedule_s=args.schedule,
+        ),
+        cfg=cfg,
+        thresholds=_learn_thresholds(args),
+        poll_interval_s=args.poll_interval,
+        max_rows=args.rows,
+        min_rows=args.min_rows,
+        recovery_timeout_s=args.recovery_timeout,
+        settle_timeout_s=args.settle_timeout,
+        say=lambda m: print(f"learn: {m}", file=sys.stderr, flush=True),
+        device=dev,
+    )
+    stop = {"now": False}
+
+    def _stop(signum, frame):
+        stop["now"] = True
+        print("learn: stopping after the current poll ...", file=sys.stderr)
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    cycles = loop.run(max_cycles=args.max_cycles, stop_check=lambda: stop["now"])
+    print(json.dumps({"cycles": cycles}, indent=1, default=str))
+    if args.max_cycles and len(cycles) < args.max_cycles:
+        return 1  # interrupted before the demanded cycles completed
+    bad = [c for c in cycles if c["outcome"] in ("failed",)]
+    return 1 if bad else 0
 
 
 def _run_learn_retrain(args, cfg, dev: torch.device) -> int:
@@ -707,6 +1392,66 @@ def _run_learn_shadow(args, dev: torch.device) -> int:
             f.write(line + "\n")
         print(f"verdict written to {args.out}", file=sys.stderr)
     return 0 if verdict["pass"] else 1
+
+
+def _run_learn_promote(args) -> int:
+    from machine_learning_replications_tpu_torch.learn import promote as promod
+
+    candidate_dir = args.candidate or _candidate_default(args.model)
+    if not args.verdict:
+        raise SystemExit(
+            "learn promote: pass --verdict VERDICT.json (from `learn "
+            "shadow --out`) — promotion without a shadow verdict is "
+            "exactly the unguarded swap this gate exists to prevent"
+        )
+    with open(args.verdict) as f:
+        verdict = json.load(f)
+    result = promod.promote(
+        candidate_dir, args.model, args.router, verdict,
+        deploy_timeout_s=args.timeout, aot=not args.no_aot,
+    )
+    print(json.dumps(result, indent=1))
+    return 0 if result["result"] == "promoted" else 1
+
+
+def _run_learn_status(args) -> int:
+    import urllib.error
+    import urllib.request
+
+    from machine_learning_replications_tpu_torch.learn.trigger import (
+        poll_quality,
+        replica_urls,
+    )
+
+    base = args.router.rstrip("/")
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as resp:
+            health = json.loads(resp.read())
+        urls = replica_urls(args.router)
+    except (urllib.error.URLError, OSError) as exc:
+        raise SystemExit(f"learn status request to {args.router} failed: {exc}")
+    status = {
+        "router": health,
+        "capture": health.get("capture"),
+        "replicas": {url: poll_quality(url) for url in urls},
+    }
+    if args.candidate:
+        from machine_learning_replications_tpu_torch.fleet.deploy import manifest_version
+        from machine_learning_replications_tpu_torch.learn.promote import (
+            REFUSED_FILE,
+            is_parked,
+        )
+
+        cand = os.path.abspath(args.candidate)
+        status["candidate"] = {
+            "path": cand,
+            "exists": os.path.isdir(cand),
+            "version": manifest_version(cand),
+            "parked": is_parked(cand),
+            "refused_file": os.path.join(cand, REFUSED_FILE) if is_parked(cand) else None,
+        }
+    print(json.dumps(status, indent=1))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -783,18 +1528,281 @@ def build_parser() -> argparse.ArgumentParser:
     add_device_flag(v)
     v.set_defaults(fn=cmd_serve)
 
+    add_fleet_parser(sub, add_alerting_flags)
     add_learn_parser(sub, add_obs_flags, add_device_flag)
     add_score_parser(sub, add_obs_flags, add_device_flag)
     return ap
 
 
+def add_fleet_parser(sub, add_alerting_flags) -> None:
+    """The JAX CLI's whole ``fleet`` parser (no ``--device``: no fleet role
+    touches the card)."""
+    f = sub.add_parser(
+        "fleet",
+        help="fleet tier: front-door router, rolling deploys, the autoscaler, "
+        "status (none of them touches the card)",
+    )
+    fsub = f.add_subparsers(dest="role", required=True)
+    fr = fsub.add_parser(
+        "router",
+        help="run the front-door router: replica registry, /readyz-driven "
+        "rotation, retry/hedging, /fleet control plane",
+    )
+    fr.add_argument("--host", default="127.0.0.1")
+    fr.add_argument("--port", type=int, default=8080)
+    fr.add_argument(
+        "--replica", action="append", metavar="ID=URL", default=None,
+        help="seed the registry with a static replica (repeatable); "
+        "replicas may also self-register via `cli serve --register`",
+    )
+    fr.add_argument(
+        "--request-timeout", type=float, default=30.0,
+        help="router-side reply deadline per request (seconds); an "
+        "inbound X-Request-Deadline-Ms tightens it, never loosens",
+    )
+    fr.add_argument(
+        "--hedge-ms", type=float, default=250.0,
+        help="fire a duplicate attempt against a second replica when the "
+        "first has not answered within this delay (0 disables hedging)",
+    )
+    fr.add_argument(
+        "--max-attempts", type=int, default=3,
+        help="upstream attempts per request (first + retries/hedges)",
+    )
+    fr.add_argument(
+        "--probe-interval", type=float, default=0.5,
+        help="seconds between /readyz probe passes",
+    )
+    fr.add_argument(
+        "--probe-timeout", type=float, default=2.0,
+        help="per-probe HTTP timeout",
+    )
+    fr.add_argument(
+        "--fail-threshold", type=int, default=2,
+        help="consecutive failed probes before rotation out (an explicit "
+        "not-ready rotates out on the first probe)",
+    )
+    fr.add_argument(
+        "--recover-probes", type=int, default=2,
+        help="consecutive ready probes before an out replica re-enters "
+        "rotation",
+    )
+    fr.add_argument(
+        "--breaker-failures", type=int, default=3,
+        help="consecutive request failures that open a replica's breaker "
+        "(immediate rotation out; probes close it)",
+    )
+    fr.add_argument(
+        "--workers", type=int, default=1,
+        help="pre-fork N SO_REUSEPORT router processes on the shared "
+        "--port for many-core hosts; each worker owns its own event "
+        "loop (listener + upstream pool) and registry, converging "
+        "membership through the replicas' registration heartbeats",
+    )
+    fr.add_argument(
+        "--journal", default=None,
+        help="JSONL journal path (registration, rotation, deploy arc)",
+    )
+    fr.add_argument(
+        "--capture", default=None, metavar="DIR",
+        help="continual-learning cohort tap: append "
+        "every served /predict body to a bounded rotating JSONL window "
+        "in DIR — the `cli learn` retrain's data source",
+    )
+    fr.add_argument(
+        "--capture-rows-per-shard", type=int, default=4096,
+        help="capture shard rotation size (rows)",
+    )
+    fr.add_argument(
+        "--capture-max-shards", type=int, default=8,
+        help="capture shards retained (older ones are unlinked; the "
+        "window is ~rows-per-shard x max-shards recent rows)",
+    )
+    add_alerting_flags(fr, "router")
+    fr.add_argument("--verbose", action="store_true")
+    fr.set_defaults(fn=cmd_fleet)
+    fd = fsub.add_parser(
+        "deploy",
+        help="rolling deploy: drive a new checkpoint version across the "
+        "fleet through the router, one replica at a time",
+    )
+    fd.add_argument("--router", required=True, help="router base URL")
+    fd.add_argument(
+        "--model", required=True,
+        help="checkpoint directory (every replica must be able to read "
+        "this path)",
+    )
+    fd.add_argument(
+        "--timeout", type=float, default=1800.0,
+        help="end-to-end rollout timeout (seconds)",
+    )
+    fd.set_defaults(fn=cmd_fleet)
+    fa = fsub.add_parser(
+        "autoscale",
+        help="elastic-fleet daemon: watch the router's load signals and "
+        "grow/shrink local replica processes with drain-first "
+        "retirement and crash replacement",
+    )
+    fa.add_argument("--router", required=True, help="router base URL")
+    fa.add_argument(
+        "--model", required=True,
+        help="checkpoint directory every spawned replica serves",
+    )
+    fa.add_argument(
+        "--min", type=int, default=1,
+        help="minimum replica count (the daemon spawns up to this at "
+        "start and never retires below it)",
+    )
+    fa.add_argument(
+        "--max", type=int, default=4,
+        help="maximum replica count (scale-out stops here no matter the "
+        "load)",
+    )
+    fa.add_argument(
+        "--step", type=int, default=1,
+        help="replicas added/removed per scale decision",
+    )
+    fa.add_argument(
+        "--poll-interval", type=float, default=1.0,
+        help="seconds between signal polls",
+    )
+    fa.add_argument(
+        "--breach-polls", type=int, default=3,
+        help="consecutive breaching polls before a scale-out fires "
+        "(debounce)",
+    )
+    fa.add_argument(
+        "--idle-polls", type=int, default=10,
+        help="consecutive all-quiet polls before a scale-in fires",
+    )
+    fa.add_argument(
+        "--cooldown", type=float, default=30.0,
+        help="seconds after any scale action before the next may fire "
+        "(both directions — flapping load cannot thrash the fleet)",
+    )
+    fa.add_argument(
+        "--out-queue-depth", type=float, default=8.0,
+        help="scale-out when any replica's /healthz queue depth reaches "
+        "this (sustained --breach-polls)",
+    )
+    fa.add_argument(
+        "--out-latency-ms", type=float, default=250.0,
+        help="scale-out when the router's recent mean /predict latency "
+        "reaches this",
+    )
+    fa.add_argument(
+        "--out-shed-rate", type=float, default=0.02,
+        help="scale-out when the router's recent shed fraction reaches "
+        "this",
+    )
+    fa.add_argument(
+        "--out-burn-rate", type=float, default=4.0,
+        help="scale-out when any replica's worst SLO burn rate reaches "
+        "this",
+    )
+    fa.add_argument(
+        "--in-queue-depth", type=float, default=1.0,
+        help="scale-in requires every replica queue depth at or under "
+        "this (and every other signal under its twin) for --idle-polls",
+    )
+    fa.add_argument("--in-latency-ms", type=float, default=50.0)
+    fa.add_argument("--in-shed-rate", type=float, default=0.0)
+    fa.add_argument("--in-burn-rate", type=float, default=1.0)
+    fa.add_argument(
+        "--out-alerts-active", type=float, default=None,
+        help="scale-out when this many router alert rules are firing "
+        "(/fleet/alerts; default None keeps the alert plane out of the "
+        "control loop — the reading is journaled either way)",
+    )
+    fa.add_argument(
+        "--in-alerts-active", type=float, default=None,
+        help="scale-in twin of --out-alerts-active (None: firing "
+        "alerts never block a scale-in)",
+    )
+    fa.add_argument(
+        "--ready-deadline", type=float, default=300.0,
+        help="seconds a spawned replica may take to answer /readyz "
+        "before the spawn fails closed (killed, journaled, retried "
+        "under backoff)",
+    )
+    fa.add_argument(
+        "--drain-settle", type=float, default=10.0,
+        help="retirement drain bound: seconds to wait (after leaving "
+        "rotation) for the replica's queue to empty before SIGTERM",
+    )
+    fa.add_argument(
+        "--term-deadline", type=float, default=30.0,
+        help="seconds after SIGTERM before a replica that refuses to "
+        "drain is SIGKILLed",
+    )
+    fa.add_argument(
+        "--respawn-backoff", type=float, default=1.0,
+        help="initial crash-respawn backoff (doubles per consecutive "
+        "failure)",
+    )
+    fa.add_argument("--respawn-backoff-max", type=float, default=30.0)
+    fa.add_argument(
+        "--replica-host", default="127.0.0.1",
+        help="host spawned replicas bind (ports are allocated fresh)",
+    )
+    fa.add_argument(
+        "--serve-arg", action="append", metavar="ARG", default=None,
+        help="extra `serve` flag for every spawned replica (repeatable, "
+        "one token per use; use the = form for tokens that start with a "
+        "dash: --serve-arg=--buckets --serve-arg=1,8). Replicas run on the "
+        "card unless --serve-arg=--device --serve-arg=cpu",
+    )
+    fa.add_argument(
+        "--no-aot", action="store_true",
+        help="spawn every replica with `serve --no-aot` (accepted for the "
+        "JAX CLI's flag: port replicas capture their graphs either way)",
+    )
+    fa.add_argument(
+        "--replica-journal-dir", default=None,
+        help="directory for per-replica journals "
+        "(replica_<id>.jsonl each)",
+    )
+    fa.add_argument(
+        "--max-ticks", type=int, default=None,
+        help="exit after N polls (drills/CI; default: run until "
+        "signalled)",
+    )
+    fa.add_argument(
+        "--leave-running", action="store_true",
+        help="on shutdown, leave managed replicas serving (default: "
+        "drain and stop them with the daemon)",
+    )
+    fa.add_argument(
+        "--inject", action="append", metavar="SPEC", default=None,
+        help="arm a lifecycle faultpoint in this process (repeatable): "
+        "lifecycle.spawn:corrupt@once, lifecycle.drain:corrupt@once, … "
+        "(the resilience.faults catalog)",
+    )
+    fa.add_argument(
+        "--metrics-out", default=None,
+        help="write the daemon's final Prometheus exposition "
+        "(autoscale_*, lifecycle_* families) to this path on exit",
+    )
+    fa.add_argument(
+        "--journal", default=None,
+        help="JSONL journal path (autoscale decisions + lifecycle arcs)",
+    )
+    fa.set_defaults(fn=cmd_fleet)
+    fs = fsub.add_parser(
+        "status", help="print the router's registry and health snapshot"
+    )
+    fs.add_argument("--router", required=True, help="router base URL")
+    fs.set_defaults(fn=cmd_fleet)
+
+
+
 def add_learn_parser(sub, add_obs_flags, add_device_flag) -> None:
     """The JAX CLI's whole ``learn`` parser, ``--device`` added to the roles
-    that load a model."""
+    that fit or replay a model."""
     ln = sub.add_parser(
         "learn",
-        help="continual learning: warm refit on captured traffic and shadow "
-        "evaluation (run, promote and status need a fleet router: ROADMAP item 8b)",
+        help="continual learning: drift-triggered retraining on captured traffic, "
+        "shadow evaluation and guarded promotion through the fleet router",
     )
     lsub = ln.add_subparsers(dest="role", required=True)
 
@@ -968,15 +1976,14 @@ def add_learn_parser(sub, add_obs_flags, add_device_flag) -> None:
     )
     lp.add_argument(
         "--no-aot", action="store_true",
-        help="publish the promoted model WITHOUT the AOT executable "
-        "bundle (kept for the JAX CLI's parser; promote is not ported yet)",
+        help="accepted for the JAX CLI's flag: the port publishes no AOT "
+        "executable bundle with or without it",
     )
     lp.add_argument(
         "--timeout", type=float, default=1800.0,
         help="end-to-end rollout timeout (seconds)",
     )
-    add_obs_flags(lp)
-    add_device_flag(lp)
+    add_obs_flags(lp)  # no --device: promote republishes on the CPU
     lp.set_defaults(fn=cmd_learn)
 
     ls = lsub.add_parser(
@@ -1112,15 +2119,15 @@ def add_score_parser(sub, add_obs_flags, add_device_flag) -> None:
     c.set_defaults(fn=cmd_score)
 
 
-def add_alerting_flags(p) -> None:
+def add_alerting_flags(p, role: str = "replica") -> None:
     """The JAX CLI's alerting flags (history sampler, alert rules, incident
-    bundles), for ``serve``."""
+    bundles), for ``serve`` and ``fleet router``."""
     p.add_argument("--history-interval", type=float, default=10.0, metavar="SECONDS",
                    help="in-process metrics history sampling interval for /debug/history "
                    "and alert evaluation (0 disables the whole history/alerting plane)")
     p.add_argument("--alert-rules", default=None, metavar="FILE",
                    help="JSON alert-rule file (list of rule specs) replacing the built-in "
-                   "replica defaults")
+                   f"{role} defaults")
     p.add_argument("--no-alerts", action="store_true",
                    help="sample history but evaluate no alert rules")
     p.add_argument("--incident-dir", default=None, metavar="DIR",
@@ -1132,9 +2139,8 @@ def add_alerting_flags(p) -> None:
 
 
 def add_serve_flags(v) -> None:
-    """The JAX CLI's ``serve`` flags, but for the ones not ported yet
-    (ROADMAP item 8b: ``--register``, ``--advertise``, ``--no-aot``,
-    ``--xla-intra-op-threads``; ``--workers`` takes only 1)."""
+    """The JAX CLI's ``serve`` flags, plus the private ``--worker-id`` a
+    multi-worker parent hands each worker it starts."""
     v.add_argument("--model", help="port checkpoint directory (persist/checkpoint.py)")
     v.add_argument("--pkl", help="legacy sklearn pickle (no default: give this or --model)")
     v.add_argument("--host", default="127.0.0.1")
@@ -1157,7 +2163,10 @@ def add_serve_flags(v) -> None:
                    help="skip the startup capture of every bucket (first requests then "
                    "pay the captures)")
     v.add_argument("--workers", type=int, default=1,
-                   help="worker processes; only 1 is ported (ROADMAP item 8b)")
+                   help="SO_REUSEPORT worker processes on one fixed --port, each a fresh "
+                   "interpreter with its own CUDA context and graphs; the parent only "
+                   "supervises (forwards SIGTERM/SIGINT, stops the rest if one dies)")
+    v.add_argument("--worker-id", type=int, default=None, help=argparse.SUPPRESS)
     v.add_argument("--idle-timeout", type=float, default=5.0,
                    help="seconds a keep-alive connection may sit idle before it is reaped")
     v.add_argument("--max-connections", type=int, default=8192,
@@ -1202,15 +2211,34 @@ def add_serve_flags(v) -> None:
                    "micro-batcher and the device engine")
     v.add_argument("--host-workers", type=int, default=1,
                    help="host fast-path worker threads")
+    v.add_argument("--no-aot", action="store_true",
+                   help="accepted for the JAX CLI's flag and journaled: the port publishes "
+                   "no AOT executable bundle, so every checkpoint is served by capturing "
+                   "its graphs at warmup")
+    v.add_argument("--xla-intra-op-threads", type=int, default=None,
+                   help="torch host intra-op thread-pool size (torch.set_num_threads; the "
+                   "host path and the CPU engine run there; default: min(4, cores/2) with "
+                   "a floor of 1; 0 leaves torch alone); journaled in the serve manifest")
     v.add_argument("--replica-id", default=None,
-                   help="fleet identity echoed on every reply as X-Replica")
+                   help="fleet identity echoed on every reply as X-Replica and on the "
+                   "health probes (default when registering: HOST:PORT)")
+    v.add_argument("--register", default=None, metavar="ROUTER_URL",
+                   help="self-register with a fleet router (POST /fleet/replicas), "
+                   "retrying until it answers; deregisters on graceful shutdown. With "
+                   "--workers N only worker 0 registers (one shared port = one logical "
+                   "replica)")
+    v.add_argument("--advertise", default=None, metavar="URL",
+                   help="the URL the router should reach this replica at (default "
+                   "http://HOST:PORT)")
     v.add_argument("--admin-endpoint", action="store_true",
                    help="enable the guarded /admin/deploy warm-swap endpoint")
     v.add_argument("--verbose", action="store_true", help="log each request")
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv  # what a multi-worker serve parent re-runs in each worker
     return args.fn(args)
 
 

@@ -1,5 +1,4 @@
-"""Continual learning, the offline half: the port of the JAX package's
-``learn/`` as far as it runs without a fleet router.
+"""Continual learning: the port of the JAX package's ``learn/``.
 
   ``capture``   bounded rotating JSONL window of served rows (the
                 ``score``/``loadgen`` patient format) — the refit's data;
@@ -12,25 +11,28 @@
                 may serve: divergence, flip rate, candidate self-quality on
                 its OWN reference profile, disagreement delta —
                 ``learn_shadow_*`` metrics + a machine-readable verdict
+  ``trigger``   the debounced drift trigger over the fleet's replicas
+                (a verbatim copy)
+  ``promote``   the guarded promotion: publish + rolling deploy through
+                the fleet router on a passing verdict, park on a failing one
+  ``loop``      the closed loop (``cli learn run``): trigger → retrain →
+                shadow → promote
 
-The JAX package's ``trigger``, ``promote`` and ``loop`` talk to a fleet
-router; they come with the fleet slice (ROADMAP item 8b).
+``capture``, ``trigger`` and ``promote``'s router half import no torch;
+the exports below resolve on first use, so importing one of them does not
+pull in the refit's or the replay's stack.
 """
 
-from machine_learning_replications_tpu_torch.learn.capture import (
-    CohortCapture,
-    load_recent,
-)
-from machine_learning_replications_tpu_torch.learn.shadow import (
-    ShadowThresholds,
-    cohort_quality,
-    score_divergence,
-)
+from machine_learning_replications_tpu_torch.lazyimport import lazy_exports
 
-__all__ = [
-    "CohortCapture",
-    "ShadowThresholds",
-    "cohort_quality",
-    "load_recent",
-    "score_divergence",
-]
+_EXPORTS = {
+    "CohortCapture": "capture",
+    "load_recent": "capture",
+    "ShadowThresholds": "shadow",
+    "cohort_quality": "shadow",
+    "score_divergence": "shadow",
+    "TriggerPolicy": "trigger",
+    "poll_quality": "trigger",
+}
+__all__ = sorted(_EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

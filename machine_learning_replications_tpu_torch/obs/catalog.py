@@ -89,6 +89,43 @@ METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "learn_shadow_disagreement_delta": ("gauge", ()),
     "learn_shadow_rows": ("gauge", ()),
     "learn_shadow_evaluations_total": ("counter", ("verdict",)),
+    # -- learn/{trigger,promote} ---------------------------------------------
+    "learn_trigger_alert_streak": ("gauge", ()),
+    "learn_trigger_total": ("counter", ("outcome",)),
+    "learn_promotions_total": ("counter", ("result",)),
+    # -- fleet/registry, fleet/router ----------------------------------------
+    "fleet_probe_total": ("counter", ("result",)),
+    "fleet_replicas": ("gauge", ("state",)),
+    "fleet_rotations_total": ("counter", ("direction",)),
+    "fleet_capture_dropped_total": ("counter", ()),
+    "fleet_deploys_total": ("counter", ("result",)),
+    "fleet_hedge_wins_total": ("counter", ()),
+    "fleet_hedges_total": ("counter", ()),
+    "fleet_replica_requests_total": ("counter", ("replica", "result")),
+    "fleet_request_latency_seconds": ("histogram", ()),
+    "fleet_requests_total": ("counter", ("outcome",)),
+    "fleet_retries_total": ("counter", ("reason",)),
+    "fleet_upstream_attempts_total": ("counter", ("result",)),
+    "fleet_upstream_connections_total": ("counter", ("event",)),
+    # -- obs/fleetmetrics, obs/fleettrace ------------------------------------
+    "fleet_scrape_merge_rejected_total": ("counter", ("reason",)),
+    "fleet_scrape_stale": ("gauge", ("replica",)),
+    "fleet_scrape_total": ("counter", ("result",)),
+    "fleet_slo_bad_total": ("counter", ("slo",)),
+    "fleet_slo_burn_rate": ("gauge", ("slo",)),
+    "fleet_slo_error_budget_remaining_ratio": ("gauge", ("slo",)),
+    "fleet_slo_good_ratio": ("gauge", ("slo",)),
+    "fleet_slo_requests_total": ("counter", ("slo",)),
+    "fleet_slo_target_ratio": ("gauge", ("slo",)),
+    "fleet_clock_offset_ms": ("gauge", ("replica",)),
+    "fleet_trace_joins_total": ("counter", ("result",)),
+    # -- fleet/lifecycle, fleet/autoscale ------------------------------------
+    "lifecycle_replicas": ("gauge", ("state",)),
+    "lifecycle_transitions_total": ("counter", ("event",)),
+    "autoscale_decisions_total": ("counter", ("decision",)),
+    "autoscale_desired_replicas": ("gauge", ()),
+    "autoscale_signal": ("gauge", ("signal",)),
+    "autoscale_streak": ("gauge", ("kind",)),
     # -- score/ --------------------------------------------------------------
     "score_rows_total": ("counter", ()),
     "score_quarantined_rows_total": ("counter", ()),
@@ -144,6 +181,34 @@ EVENTS: dict[str, tuple[str, ...]] = {
     "learn_retrain_done": (),
     "learn_retrain_failed": ("error", "rows", "seconds"),
     "learn_shadow_verdict": ("passed", "reasons"),
+    "learn_trigger": ("fired", "reason"),
+    "learn_candidate_published": ("candidate", "model", "version"),
+    "learn_promotion": ("candidate", "result"),
+    "learn_settle": ("skipped",),
+    "learn_cycle_done": ("outcome",),
+    "learn_recovery": ("recovered",),
+    # -- the fleet (cli serve --register, fleet/, obs/fleet*) ----------------
+    "replica_registered": ("replica", "router", "url"),
+    "fleet_router_started": ("address", "replicas"),
+    "fleet_replica_registered": ("replica", "url"),
+    "fleet_replica_deregistered": ("replica", "url"),
+    "fleet_rotation": ("replica", "direction", "reason"),
+    "fleet_deploy_start": ("model", "target_version", "replicas", "concurrency"),
+    "fleet_deploy_replica": ("model",),
+    "fleet_deploy_done": ("model", "target_version", "result", "error", "seconds"),
+    "fleet_scrape_transition": ("replica", "stale"),
+    "fleet_trace_export": ("requests", "joined", "containment_ratio"),
+    "lifecycle_spawn": ("replica", "pid", "port", "attempt", "respawn"),
+    "lifecycle_spawn_failed": ("replica", "reason", "attempts", "retry_in_s"),
+    "lifecycle_ready": ("replica", "url", "seconds", "respawn"),
+    "lifecycle_drain": ("replica", "reason", "settle_deadline_s"),
+    "lifecycle_drain_error": ("replica", "error"),
+    "lifecycle_term": ("replica", "delivered", "drained", "kill_deadline_s"),
+    "lifecycle_kill": ("replica", "reason"),
+    "lifecycle_exit": ("replica", "code", "reason"),
+    "lifecycle_crash": ("replica", "state", "detail"),
+    "autoscale_decision": ("decision", "reason", "ready", "desired"),
+    "autoscale_tick_error": ("error",),
     # -- score/ --------------------------------------------------------------
     "score_resume": ("chunks", "rows", "bad_rows", "lines"),
     "score_chunk": ("seq", "rows", "bad", "seconds"),

@@ -99,17 +99,30 @@ def config_hash(config_json: str | bytes | None) -> str | None:
     return hashlib.sha256(config_json).hexdigest()
 
 
-def run_manifest(command: str | None = None, config_json: str | None = None) -> dict:
+def _dist_version(name: str) -> str | None:
+    """An installed distribution's version without importing it."""
+    try:
+        from importlib.metadata import version
+
+        return version(name)
+    except Exception:
+        return None
+
+
+def run_manifest(command: str | None = None, config_json: str | None = None,
+                 extra: dict | None = None) -> dict:
     """The run-provenance record every journal starts with. Versions come
     from the package and ``torch.version``; ``device`` is the card's
     name when CUDA is up (absent otherwise); ``git_sha``/``git_dirty`` only
-    when the package runs from its own checkout."""
+    when the package runs from its own checkout. A process that never
+    imported torch (the fleet's router and autoscaler) is left without it:
+    torch's version then comes from its installed metadata, and no card is
+    named, since such a process owns none."""
     import platform
-
-    import torch
 
     from machine_learning_replications_tpu_torch import __version__
 
+    torch = sys.modules.get("torch")
     man = {
         "kind": "manifest",
         "run_id": uuid.uuid4().hex[:12],
@@ -122,14 +135,17 @@ def run_manifest(command: str | None = None, config_json: str | None = None) -> 
         "pid": os.getpid(),
         "versions": {
             "machine_learning_replications_tpu_torch": __version__,
-            "torch": torch.version.__version__,
-            "cuda": torch.version.cuda,
+            "torch": (torch.version.__version__ if torch is not None
+                      else _dist_version("torch")),
+            "cuda": torch.version.cuda if torch is not None else None,
         },
         "config_hash": config_hash(config_json),
         **_git_sha(),
     }
-    if torch.cuda.is_available():
+    if torch is not None and torch.cuda.is_available():
         man["device"] = torch.cuda.get_device_name()
+    if extra:
+        man.update(extra)
     return man
 
 
@@ -141,14 +157,14 @@ class RunJournal:
     (the same durability posture as ``stage_say``'s flush=True)."""
 
     def __init__(self, path: str | os.PathLike, command: str | None = None,
-                 config_json: str | None = None) -> None:
+                 config_json: str | None = None, extra: dict | None = None) -> None:
         self.path = os.path.abspath(os.fspath(path))
         parent = os.path.dirname(self.path)
         if parent:
             os.makedirs(parent, exist_ok=True)
         self._lock = threading.Lock()
         self._f = open(self.path, "w")
-        self.manifest = run_manifest(command=command, config_json=config_json)
+        self.manifest = run_manifest(command=command, config_json=config_json, extra=extra)
         self._write(self.manifest)
 
     def _write(self, rec: dict) -> None:

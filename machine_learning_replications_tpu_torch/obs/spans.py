@@ -36,15 +36,19 @@ import dataclasses
 import json
 import os
 import threading
+import sys
 import time
 from typing import Any, Iterator
-
-import torch
 
 
 def _cuda_devices(x: Any, out: set) -> None:
     """Collect the CUDA devices of every tensor in ``x`` (a tensor, or
     dataclasses, mappings and sequences of them)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        # No tensor can exist before torch is imported; the fleet's
+        # processes (router, autoscaler) journal through here without it.
+        return
     if isinstance(x, torch.Tensor):
         if x.device.type == "cuda":
             out.add(x.device)
@@ -68,7 +72,7 @@ def _block_pending(pending: list) -> None:
     for x in pending:
         _cuda_devices(x, devices)
     for d in sorted(devices, key=str):
-        torch.cuda.synchronize(d)
+        sys.modules["torch"].cuda.synchronize(d)
 
 
 class SpanHandle:

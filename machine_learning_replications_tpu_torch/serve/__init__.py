@@ -24,36 +24,23 @@ watchdog deadline per flush, circuit breaker, degraded-mode 503 +
 Entry point: ``python -m machine_learning_replications_tpu_torch serve``.
 """
 
-from machine_learning_replications_tpu_torch.serve.batcher import (
-    MicroBatcher,
-    Overloaded,
-    PathRouter,
-)
-from machine_learning_replications_tpu_torch.serve.engine import (
-    DEFAULT_BUCKETS,
-    BucketedPredictEngine,
-)
-from machine_learning_replications_tpu_torch.serve.hostpath import (
-    HostBusy,
-    HostPath,
-    HostScorer,
-)
-from machine_learning_replications_tpu_torch.serve.metrics import ServingMetrics
-from machine_learning_replications_tpu_torch.serve.server import (
-    ServerHandle,
-    make_server,
-)
+from machine_learning_replications_tpu_torch.lazyimport import lazy_exports
 
-__all__ = [
-    "BucketedPredictEngine",
-    "DEFAULT_BUCKETS",
-    "HostBusy",
-    "HostPath",
-    "HostScorer",
-    "MicroBatcher",
-    "Overloaded",
-    "PathRouter",
-    "ServingMetrics",
-    "ServerHandle",
-    "make_server",
-]
+# Resolved on first use: the fleet's processes import ``serve.protocol``,
+# ``serve.transport`` and ``serve.metrics`` without torch, which the engine,
+# host path and server pull in.
+_EXPORTS = {
+    "BucketedPredictEngine": "engine",
+    "DEFAULT_BUCKETS": "engine",
+    "HostBusy": "hostpath",
+    "HostPath": "hostpath",
+    "HostScorer": "hostpath",
+    "MicroBatcher": "batcher",
+    "Overloaded": "batcher",
+    "PathRouter": "batcher",
+    "ServingMetrics": "metrics",
+    "ServerHandle": "server",
+    "make_server": "server",
+}
+__all__ = sorted(_EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

@@ -227,7 +227,7 @@ class ServerHandle:
     def __init__(
         self, engine, batcher, metrics, httpd,
         recorder=None, slo_tracker=None, profile_dir: str | None = None,
-        quality=None,
+        quality=None, worker_id: int | None = None,
         host=None, router=None, quality_feed=None,
         model_version: int | None = None, replica_id: str | None = None,
         admin_enabled: bool = False, live=None, say=None, device=None,
@@ -240,8 +240,7 @@ class ServerHandle:
         self.slo_tracker = slo_tracker
         self.profile_dir = profile_dir
         self.quality = quality  # obs.quality.QualityMonitor or None
-        # The JAX server's pre-fork worker id: one process, one worker here.
-        self.worker_id = None
+        self.worker_id = worker_id  # multi-worker id (cli serve --workers N), or None
         self.host = host            # hostpath.HostPath or None
         self.router = router        # batcher.PathRouter or None
         self.quality_feed = quality_feed  # AsyncQualityFeed or None
@@ -1369,6 +1368,8 @@ def make_server(
     incident_dir: str | None = None,
     incident_min_interval_s: float = 60.0,
     incident_retention: int = 8,
+    reuse_port: bool = False,
+    worker_id: int | None = None,
     *,
     device=None,
 ) -> ServerHandle:
@@ -1439,9 +1440,13 @@ def make_server(
     Transport (``serve.transport``): a non-blocking event loop serves
     every connection from one thread — keep-alive pipelining, bounded
     buffers, idle/slow-loris reaping after ``idle_timeout_s``, at most
-    ``max_connections`` concurrent sockets. One process, one worker: the
-    pre-fork ``SO_REUSEPORT`` workers of the JAX server are not ported
-    (a fork after CUDA is initialised is undefined).
+    ``max_connections`` concurrent sockets. ``reuse_port`` binds with
+    ``SO_REUSEPORT`` for the multi-worker mode (``cli serve --workers N``:
+    each worker a process of its own, with its own CUDA context);
+    ``worker_id`` threads the worker's identity into ``/healthz``,
+    ``/metrics`` (``serve_worker_info{worker=…}``), and — via the CLI — the
+    journal manifest, so scrapes and journals through the shared port stay
+    attributable to a specific worker process.
 
     Fleet (docs/FLEET.md): ``model_version`` is the served checkpoint's
     monotonic version id (``persist.checkpoint_version``) and
@@ -1586,12 +1591,16 @@ def make_server(
         profile_dir = os.path.join(
             tempfile.gettempdir(), f"mlr_profiles_{os.getpid()}"
         )
+    if worker_id is not None:
+        # Attribution through the shared SO_REUSEPORT port: every scrape
+        # names the worker process it landed on.
+        WORKER_INFO.set(1, worker=str(worker_id))
     if model_version is not None:
         MODEL_VERSION.get().set(float(model_version))
     handle = ServerHandle(
         engine, batcher, metrics, None,
         recorder=recorder, slo_tracker=slo_tracker, profile_dir=profile_dir,
-        quality=quality_monitor,
+        quality=quality_monitor, worker_id=worker_id,
         host=host_pool, router=router, quality_feed=quality_feed,
         model_version=model_version, replica_id=replica_id,
         admin_enabled=admin_endpoint, live={"params": params}, say=say,
@@ -1632,6 +1641,7 @@ def make_server(
             (host, port), app,
             idle_timeout_s=idle_timeout_s,
             max_connections=max_connections,
+            reuse_port=reuse_port,
         )
         if warmup:
             engine.warmup(say=say)

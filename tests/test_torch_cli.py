@@ -255,7 +255,7 @@ def test_parser_has_the_jax_commands_and_flags():
     parser = cli.build_parser()
     sub = next(a for a in parser._actions if a.dest == "command")
     assert set(sub.choices) == {"train", "predict", "sweep", "import-sklearn", "serve", "score",
-                                "learn"}
+                                "learn", "fleet"}
     flags = {name: {o for a in p._actions for o in a.option_strings}
              for name, p in sub.choices.items()}
     assert {"--plots", "--trace-dir", "--journal", "--save", "--resume-dir"} <= flags["train"]
@@ -263,13 +263,20 @@ def test_parser_has_the_jax_commands_and_flags():
     assert {"--n-estimators", "--max-depth", "--folds", "--save"} <= flags["sweep"]
     assert "--trace-dir" not in flags["sweep"]      # JAX's sweep has no obs flags
     assert {"--pkl", "--out"} <= flags["import-sklearn"]
-    # serve: the JAX parser's flags, but for the ones not ported yet, plus --device
+    # serve: every flag of the JAX parser's, plus --device and the private
+    # --worker-id a multi-worker parent hands its workers; fleet: every role
+    # and flag of the JAX parser's, no --device (no fleet role uses the card)
     jsub = next(a for a in jcli.build_parser()._actions if a.dest == "command")
     jserve = {o for a in jsub.choices["serve"]._actions for o in a.option_strings}
-    deferred = {"--register", "--advertise", "--no-aot", "--xla-intra-op-threads"}
-    assert flags["serve"] == (jserve - deferred) | {"--device"}
+    assert flags["serve"] == jserve | {"--device", "--worker-id"}
+    froles = next(a for a in sub.choices["fleet"]._actions if a.dest == "role").choices
+    jfroles = next(a for a in jsub.choices["fleet"]._actions if a.dest == "role").choices
+    assert set(froles) == set(jfroles) == {"router", "deploy", "autoscale", "status"}
+    for role, p in froles.items():
+        got = {o for a in p._actions for o in a.option_strings}
+        assert got == {o for a in jfroles[role]._actions for o in a.option_strings}, role
     # score: every flag of the JAX parser's, plus --device; learn: every role
-    # and flag, --device on the roles that load a model
+    # and flag, --device on the roles that fit or replay a model
     jscore = {o for a in jsub.choices["score"]._actions for o in a.option_strings}
     assert flags["score"] == jscore | {"--device"}
     roles = next(a for a in sub.choices["learn"]._actions if a.dest == "role").choices
@@ -278,7 +285,7 @@ def test_parser_has_the_jax_commands_and_flags():
     for role, p in roles.items():
         got = {o for a in p._actions for o in a.option_strings}
         want = {o for a in jroles[role]._actions for o in a.option_strings}
-        assert got == want | ({"--device"} if role != "status" else set()), role
+        assert got == want | ({"--device"} if role not in ("status", "promote") else set()), role
     defaults = parser.parse_args(["sweep"])
     jdefaults = jcli.build_parser().parse_args(["sweep"])
     for k in ("n_estimators", "max_depth", "folds", "synthetic", "missing_rate", "seed"):

@@ -1,4 +1,5 @@
-"""The hand-written histogram kernel on the card, against its plain version.
+"""The hand-written histogram kernel on the card, against its plain version,
+and the port's paths that run on the card (serving, scoring, the fleet).
 
 Every test here needs an NVIDIA GPU and ``nvcc``; without them each skips.
 The file imports neither JAX nor the JAX package, so on a machine that has
@@ -847,3 +848,177 @@ def test_score_parse_worker_race(cuda_device, tmp_path):
                          parse_workers=4, prefetch=2)
         assert ovl["output_sha256"] == seq["output_sha256"]
         assert _score_bytes(out) == _score_bytes(tmp_path / "seq")
+
+
+# ---------------------------------------------------------------------------
+# the fleet: workers with their own contexts, registered replicas, the loop
+# ---------------------------------------------------------------------------
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "machine_learning_replications_tpu_torch", "persist", "testdata",
+                       "stacking_small.pkl")
+
+
+def _holds_card(pid):
+    """Whether process ``pid`` has a CUDA device node (``/dev/nvidiaN``) open."""
+    import re
+
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+", os.readlink(f"/proc/{pid}/fd/{fd}")):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def _smi_pids():
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return {int(line) for line in out.split() if line.strip()}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_json(url, body=None, timeout=5.0):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read()), dict(resp.headers)
+
+
+def _serve(log, *argv):
+    import subprocess
+    import sys
+
+    return subprocess.Popen([sys.executable, "-m", "machine_learning_replications_tpu_torch",
+                             "serve", "--pkl", FIXTURE, *argv],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+                            env={**os.environ, "MLR_TPU_PROGRESS": "0"})
+
+
+def _stop(proc):
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    return proc.wait(timeout=120)
+
+
+def test_cli_serve_workers_each_own_a_context_the_parent_none(cuda_device, tmp_path):
+    import json
+    import time
+
+    port = _free_port()
+    with open(tmp_path / "serve.log", "w") as log:
+        proc = _serve(log, "--port", str(port), "--workers", "2", "--buckets", "1,8")
+        try:
+            seen, deadline = set(), time.monotonic() + 240
+            while seen != {0, 1}:
+                assert proc.poll() is None, (tmp_path / "serve.log").read_text()[-3000:]
+                assert time.monotonic() < deadline, seen
+                try:
+                    health, _ = _get_json(f"http://127.0.0.1:{port}/healthz")
+                    if health["ready"]:
+                        seen.add(health["worker"])
+                except OSError:
+                    time.sleep(0.2)
+            line = next(ln for ln in (tmp_path / "serve.log").read_text().splitlines()
+                        if "(pids " in ln)
+            pids = json.loads(line.split("(pids ")[1].rstrip(")"))
+            smi = _smi_pids()
+            assert len(set(pids)) == 2 and all(_holds_card(p) for p in pids)
+            assert not _holds_card(proc.pid) and proc.pid not in smi
+        finally:
+            assert _stop(proc) == 0, (tmp_path / "serve.log").read_text()[-3000:]
+
+
+def test_registered_replicas_behind_a_router_answer_the_oracle(cuda_device, tmp_path):
+    import time
+
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+    from machine_learning_replications_tpu_torch.fleet import make_router
+    from machine_learning_replications_tpu_torch.persist import load_inference_params
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    router = make_router(port=0, probe_interval_s=0.2).start_background()
+    rurl = f"http://127.0.0.1:{router.address[1]}"
+    procs, logs = [], []
+    try:
+        for k in range(2):
+            logs.append(open(tmp_path / f"r{k}.log", "w"))
+            procs.append(_serve(logs[-1], "--port", "0", "--buckets", "1,8", "--register", rurl,
+                                "--replica-id", f"r{k}"))
+        deadline = time.monotonic() + 240
+        while router.registry.ready_count() < 2:
+            assert all(p.poll() is None for p in procs)
+            assert time.monotonic() < deadline, router.registry.snapshot()
+            time.sleep(0.2)
+        params = load_inference_params(pkl=FIXTURE, device=cuda_device)
+        rows = _serve_rows(40)
+        want = engine.oracle_proba1(params, rows)
+        rtol, atol = engine.parity_tolerance(params)
+        served = set()
+        for i, row in enumerate(rows):
+            body, headers = _get_json(rurl + "/predict", dict(zip(SELECTED_17, map(float, row))),
+                                      timeout=30)
+            served.add(headers["X-Replica"])
+            assert abs(body["probability"] - want[i]) <= atol + rtol * abs(want[i])
+        assert served == {"r0", "r1"}
+    finally:
+        codes = [_stop(p) for p in procs]
+        for log in logs:
+            log.close()
+        router.shutdown()
+    assert codes == [0, 0]
+
+
+def test_learn_run_cycle_on_the_card_equals_the_cpu_port(cuda_device, tmp_path):
+    from machine_learning_replications_tpu_torch import convert
+    from machine_learning_replications_tpu_torch.config import ExperimentConfig
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+    from machine_learning_replications_tpu_torch.learn import capture, loop, shadow
+    from machine_learning_replications_tpu_torch.models import pipeline
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+
+    cfg = ExperimentConfig.from_dict({"gbdt": {"n_estimators": 5},
+                                      "svc": {"platt_cv": 2, "max_iter": 2000},
+                                      "stacking": {"cv_folds": 2},
+                                      "select": {"cv_folds": 3, "n_alphas": 20}})
+    X64, y, _ = make_cohort(n=300, seed=7, missing_rate=0.03)
+    live, _ = pipeline.fit_pipeline(X64, y, cfg, device="cpu")
+    checkpoint.save_model(str(tmp_path / "live"), live)
+    Xc, _, _ = make_cohort(n=300, seed=8, missing_rate=0.0)
+    X17 = np.ascontiguousarray(Xc[:, selected_indices()], np.float64)
+    X17[:, 0] += 1.0
+    cap = capture.CohortCapture(tmp_path / "cap", rows_per_shard=128)
+    for row in X17:
+        cap.append_line({k: float(v) for k, v in zip(SELECTED_17, row)})
+    cap.close()
+    runs = {}
+    for name, dev in (("card", cuda_device), ("cpu", "cpu")):
+        runs[name] = loop.run_cycle(str(tmp_path / "live"), str(tmp_path / "cap"),
+                                    str(tmp_path / f"cand_{name}"), None, cfg=cfg, min_rows=200,
+                                    device=dev)
+    assert runs["card"]["outcome"] == runs["cpu"]["outcome"]
+    assert runs["card"]["verdict"]["pass"] == runs["cpu"]["verdict"]["pass"]
+    cand = checkpoint.load_model(str(tmp_path / "cand_card"), device=cuda_device)
+    cand_cpu = checkpoint.load_model(str(tmp_path / "cand_cpu"), device="cpu")
+    got = shadow.replay_scores(cand, X17, device=cuda_device)
+    want = shadow.replay_scores(cand_cpu, X17, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-8)
+    # and the card's candidate replayed on the CPU equals it too
+    again = shadow.replay_scores(convert.params_to(cand, "cpu"), X17, device="cpu")
+    np.testing.assert_allclose(again[0], got[0], rtol=1e-5, atol=1e-8)

@@ -1,5 +1,5 @@
-"""The port's continual learning, offline half (``learn/{capture,shadow,
-retrain}`` and ``cli learn retrain|shadow``) vs the JAX package's.
+"""The port's continual learning (``learn/{capture,shadow,retrain,trigger,
+promote,loop}`` and ``cli learn``) vs the JAX package's.
 
 The shadow comparator (``score_divergence``, ``mean_disagreement``,
 ``cohort_quality``, ``judge``) is held to JAX's on the same arrays, and to
@@ -14,11 +14,18 @@ pipeline the port first fills the captured rows' 47 unobserved columns with
 the live imputer (``learn/retrain.py``'s docstring: JAX's own refit stops on
 them), so it is held to JAX's ``fit_pipeline`` on the rows JAX's imputer
 completes the same way, with JAX's distilled labels.
+
+The router half: the trigger (a verbatim copy) and the promotion gate run
+the JAX suite's tests on the port's modules; ``loop.run_cycle`` without a
+router gives JAX's verdict and statistics on the same live parameters and
+captured rows; with a router it drives a refit, the shadow verdict and a
+rolling deploy across two in-process CPU replicas.
 """
 
 import json
 import os
 import sys
+import threading
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -29,6 +36,7 @@ import torch
 from machine_learning_replications_tpu.config import ExperimentConfig as JExperimentConfig
 from machine_learning_replications_tpu.data import make_cohort
 from machine_learning_replications_tpu.data.schema import selected_indices
+from machine_learning_replications_tpu.learn import loop as jloop
 from machine_learning_replications_tpu.learn import retrain as jretrain
 from machine_learning_replications_tpu.learn import shadow as jshadow
 from machine_learning_replications_tpu.models import knn_impute as jknn
@@ -38,8 +46,11 @@ from machine_learning_replications_tpu_torch import cli, convert
 from machine_learning_replications_tpu_torch.config import ExperimentConfig
 from machine_learning_replications_tpu_torch.data.examples import EXAMPLE_PATIENT
 from machine_learning_replications_tpu_torch.learn import capture as capturemod
+from machine_learning_replications_tpu_torch.learn import loop as loopmod
+from machine_learning_replications_tpu_torch.learn import promote as promotemod
 from machine_learning_replications_tpu_torch.learn import retrain
 from machine_learning_replications_tpu_torch.learn import shadow as shadowmod
+from machine_learning_replications_tpu_torch.learn import trigger as triggermod
 from machine_learning_replications_tpu_torch.models import pipeline, stacking
 from machine_learning_replications_tpu_torch.obs import journal, quality
 from machine_learning_replications_tpu_torch.obs.registry import REGISTRY
@@ -458,13 +469,18 @@ def test_cli_learn_parser_roundtrip():
     assert ap.parse_args(["learn", "status", "--router", "http://r"]).role == "status"
 
 
-@pytest.mark.parametrize("argv", [
-    ["run", "--model", "/ck", "--capture", "/cap", "--router", "http://r"],
-    ["promote", "--model", "/ck", "--router", "http://r", "--verdict", "/v.json"],
-    ["status", "--router", "http://r"],
+@pytest.mark.parametrize("argv,message", [
+    (["run", "--model", "/ck", "--capture", "/cap", "--router", "http://r"],
+     "CUDA is not available"),
+    (["promote", "--model", "/ck", "--router", "http://r"], "pass --verdict"),
+    (["status", "--router", "http://127.0.0.1:9"], "learn status request"),
 ])
-def test_cli_learn_router_roles_name_the_roadmap_item(argv):
-    with pytest.raises(SystemExit, match="ROADMAP item 8b"):
+def test_cli_learn_router_roles_name_the_roadmap_item(argv, message, monkeypatch):
+    """The router roles are ported: each now exits with its own usage
+    error — ``run`` wants the card unless ``--device cpu``, ``promote``
+    refuses without a verdict, ``status`` names the unreachable router."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match=message):
         cli.main(["learn", *argv])
 
 
@@ -497,3 +513,286 @@ def test_cli_learn_retrain_then_shadow(live, shifted, tmp_path, capsys):
     assert rc == (0 if verdict["pass"] else 1)
     assert set(verdict) == {"pass", "reasons", "stats", "thresholds", "candidate_version"}
     assert verdict["candidate_version"] == 1 and verdict["stats"]["rows"] == 300
+
+
+# ---------------------------------------------------------------------------
+# the router half: trigger, promotion gate, the loop
+# ---------------------------------------------------------------------------
+
+
+def _journaled(tmp_path, fn):
+    """Run ``fn`` under a fresh journal; return its parsed events."""
+    path = tmp_path / "journal.jsonl"
+    jrn = journal.RunJournal(path, command="test")
+    journal.set_journal(jrn)
+    try:
+        fn()
+    finally:
+        journal.set_journal(None)
+        jrn.close()
+    return [json.loads(line) for line in open(path)]
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 100.0
+
+    def __call__(self):
+        return self.t
+
+
+def _poll(status, url="http://r1", psi=0.5, feature="Syncope"):
+    return {"url": url, "ok": status is not None, "status": status,
+            "worst_feature": feature, "worst_psi": psi, "transitions": []}
+
+
+def test_trigger_debounce_then_fire_then_cooldown(tmp_path):
+    clk = _Clock()
+    policy = triggermod.TriggerPolicy(alert_streak=3, cooldown_s=60.0, clock=clk)
+    decisions = []
+
+    def drive():
+        for _ in range(2):
+            decisions.append(policy.observe([_poll("alert", psi=2.0)]))
+            clk.t += 1
+        decisions.append(policy.observe([_poll("alert", psi=2.5)]))
+        clk.t += 1
+        for _ in range(3):  # alert again at once: suppressed by the cooldown
+            decisions.append(policy.observe([_poll("alert")]))
+            clk.t += 1
+        clk.t += 60         # past the cooldown the rebuilt streak fires again
+        decisions.append(policy.observe([_poll("alert", psi=3.0)]))
+
+    events = _journaled(tmp_path, drive)
+    assert decisions[0] is None and decisions[1] is None
+    assert decisions[2]["reason"] == "alert" and decisions[2]["worst_feature"] == "Syncope"
+    assert decisions[2]["worst_psi"] == 2.5
+    assert decisions[3] is None and decisions[4] is None and decisions[5] is None
+    assert decisions[6] is not None and decisions[6]["worst_psi"] == 3.0
+    kinds = [(e["fired"], e.get("suppressed_by")) for e in events if e["kind"] == "learn_trigger"]
+    assert kinds == [(False, "debounce"), (False, "debounce"), (True, None),
+                     (False, "debounce"), (False, "debounce"), (False, "cooldown"),
+                     (True, None)]
+
+
+def test_trigger_streak_resets_on_clean_poll():
+    clk = _Clock()
+    policy = triggermod.TriggerPolicy(alert_streak=2, cooldown_s=0, clock=clk)
+    assert policy.observe([_poll("alert")]) is None
+    assert policy.observe([_poll("ok")]) is None       # reset
+    assert policy.observe([_poll("alert")]) is None
+    assert policy.observe([_poll("alert")]) is not None
+    # an unreachable fleet neither advances nor resets the streak
+    policy2 = triggermod.TriggerPolicy(alert_streak=2, cooldown_s=0, clock=clk)
+    assert policy2.observe([_poll("alert")]) is None
+    assert policy2.observe([_poll(None)]) is None
+    assert policy2.observe([_poll("alert")]) is not None
+
+
+def test_trigger_schedule_fires_without_drift(tmp_path):
+    clk = _Clock()
+    policy = triggermod.TriggerPolicy(alert_streak=2, cooldown_s=30.0, schedule_s=100.0,
+                                      clock=clk)
+    fired = []
+
+    def drive():
+        for step in (99, 2, 20, 81, None):
+            fired.append(policy.observe([_poll("ok")]))
+            if step is not None:
+                clk.t += step
+
+    events = _journaled(tmp_path, drive)
+    assert fired[0] is None and fired[1] is None
+    assert fired[2]["reason"] == "schedule" and fired[3] is None
+    assert fired[4]["reason"] == "schedule"
+    assert [e["reason"] for e in events if e["kind"] == "learn_trigger" and e["fired"]] == \
+        ["schedule", "schedule"]
+
+
+def test_trigger_policy_validates_construction():
+    for kw in ({"alert_streak": 0}, {"cooldown_s": -1}, {"schedule_s": 0}):
+        with pytest.raises(ValueError):
+            triggermod.TriggerPolicy(**kw)
+
+
+def test_park_writes_refusal_and_blocks_publish(tmp_path):
+    cand = tmp_path / "candidate"
+    cand.mkdir()
+    verdict = {"pass": False, "reasons": ["flip_rate 0.4 exceeds 0.1"]}
+    paths = []
+    events = _journaled(tmp_path, lambda: paths.append(promotemod.park(cand, verdict)))
+    assert os.path.basename(paths[0]) == promotemod.REFUSED_FILE
+    refused = json.load(open(paths[0]))
+    assert refused["kind"] == "learn_promotion_refused"
+    assert refused["verdict"]["reasons"] == verdict["reasons"]
+    assert promotemod.is_parked(cand)
+    assert [e["result"] for e in events if e["kind"] == "learn_promotion"] == ["refused"]
+    with pytest.raises(RuntimeError, match="refused"):
+        promotemod.publish_candidate(cand, tmp_path / "live")
+
+
+def test_promote_refuses_failing_verdict_without_touching_fleet(tmp_path, live):
+    """A refused verdict parks the candidate and never reaches the router
+    (an unroutable URL) or the live checkpoint."""
+    live_dir, cand = tmp_path / "live", tmp_path / "cand"
+    checkpoint.save_model(str(live_dir), live["stacking"])
+    checkpoint.save_model(str(cand), live["stacking"])
+    out = promotemod.promote(cand, live_dir, "http://127.0.0.1:9",
+                             {"pass": False, "reasons": ["rows below min"],
+                              "candidate_version": 1})
+    assert out["result"] == "refused" and promotemod.is_parked(cand)
+    assert checkpoint.checkpoint_version(live_dir) == 1
+    with pytest.raises(ValueError, match="re-run `learn shadow`"):
+        promotemod.promote(cand, live_dir, "http://127.0.0.1:9",
+                           {"pass": True, "reasons": [], "candidate_version": 7})
+
+
+def test_promote_via_router_reads_deploy_report():
+    from machine_learning_replications_tpu_torch.serve.transport import EventLoopHttpServer
+
+    class _StubRouter:
+        def __init__(self):
+            self.bodies, self.code = [], 200
+            self.response = {"deploy": {"result": "ok", "replicas": []}}
+
+        def handle_request(self, req, rsp):
+            self.bodies.append(json.loads(req.body))
+            rsp.send_json(self.code, self.response)
+
+        def handle_protocol_error(self, exc, rsp):
+            rsp.send_json(exc.code, {"error": exc.message}, close=True)
+
+    stub = _StubRouter()
+    httpd = EventLoopHttpServer(("127.0.0.1", 0), stub)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        assert promotemod.promote_via_router(url, "/ck/model")["result"] == "ok"
+        assert stub.bodies == [{"model": "/ck/model"}]
+        # an error reply that still carries a deploy report is returned
+        stub.code, stub.response = 409, {"deploy": {"result": "failed", "error": "in progress"}}
+        assert promotemod.promote_via_router(url, "/ck/model")["result"] == "failed"
+        # an error reply without one is a transport failure
+        stub.code, stub.response = 500, {"error": "boom"}
+        with pytest.raises(RuntimeError, match="boom"):
+            promotemod.promote_via_router(url, "/ck/model")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    with pytest.raises(RuntimeError, match="failed"):
+        promotemod.promote_via_router("http://127.0.0.1:9", "/ck/model", timeout_s=0.5)
+
+
+def test_publish_candidate_rotates_the_live_path(tmp_path, live):
+    live_dir, cand = tmp_path / "live", tmp_path / "cand"
+    checkpoint.save_model(str(live_dir), live["stacking"])
+    checkpoint.save_model(str(cand), live["pipeline"])
+    assert promotemod.publish_candidate(cand, live_dir) == 2
+    assert type(checkpoint.load_model(str(live_dir), device="cpu")).__name__ == "PipelineParams"
+    assert checkpoint.checkpoint_version(checkpoint.lastgood_path(live_dir)) == 1
+    assert checkpoint.checkpoint_version(cand) == 1       # the candidate stays
+
+
+def _write_capture(cap, rows):
+    capture = capturemod.CohortCapture(cap, rows_per_shard=128)
+    names = list(EXAMPLE_PATIENT)
+    for row in rows:
+        capture.append_line({k: float(v) for k, v in zip(names, row)})
+    capture.close()
+
+
+def test_run_cycle_without_router_equals_jax(live, jax_live, shifted, tmp_path):
+    """The same live parameters (through ``convert``), the same captured
+    rows and the same distilled labels: JAX's ``run_cycle`` and the port's
+    give the same outcome, verdict, gates and retrain record, and
+    statistics within the refit's tolerance."""
+    from machine_learning_replications_tpu.persist import orbax_io
+
+    cap = tmp_path / "cap"
+    _write_capture(cap, shifted)
+    checkpoint.save_model(str(tmp_path / "live"), live["stacking"])
+    orbax_io.save_model(str(tmp_path / "jlive"), jax_live["stacking"])
+    got = loopmod.run_cycle(str(tmp_path / "live"), str(cap), str(tmp_path / "cand"), None,
+                            cfg=ExperimentConfig.from_dict(FAST), min_rows=200, device="cpu")
+    want = jloop.run_cycle(str(tmp_path / "jlive"), str(cap), str(tmp_path / "jcand"), None,
+                           cfg=JExperimentConfig.from_dict(FAST), min_rows=200)
+    assert got["outcome"] == want["outcome"] and got["from_version"] == want["from_version"] == 1
+    for k in ("version", "rows", "labels_source", "family"):
+        assert got["retrain"][k] == want["retrain"][k], k
+    v, jv = got["verdict"], want["verdict"]
+    assert v["pass"] == jv["pass"] and v["thresholds"] == jv["thresholds"]
+    assert [r.split()[0] for r in v["reasons"]] == [r.split()[0] for r in jv["reasons"]]
+    assert v["stats"]["candidate_quality"] == jv["stats"]["candidate_quality"]
+    assert set(v["stats"]) == set(jv["stats"])
+    for k in ("rows", "divergence_mean", "divergence_p95", "divergence_max", "flip_rate",
+              "score_psi", "disagreement_delta"):
+        assert v["stats"][k] == pytest.approx(jv["stats"][k], abs=2e-6), k
+    assert promotemod.is_parked(tmp_path / "cand") == (not v["pass"])
+
+
+@pytest.mark.parametrize("gate", ["open", "default"])
+def test_learn_loop_promotes_through_the_router(gate, live, shifted, tmp_path):
+    """``LearnLoop`` on a schedule trigger over two in-process CPU replicas
+    behind the router: the refit on the router's captured rows, the shadow
+    verdict, then either the rolling deploy (gates opened: every replica at
+    v2, serving the candidate) or, at the default gates (the seeded refit
+    moves too far for them), a parked candidate and an untouched fleet."""
+    from machine_learning_replications_tpu_torch.fleet import make_router
+    from machine_learning_replications_tpu_torch.serve import make_server
+
+    model, cap = str(tmp_path / "live"), str(tmp_path / "cap")
+    checkpoint.save_model(model, live["stacking"])
+    replicas = [make_server(checkpoint.load_model(model, device="cpu"), port=0, buckets=(1, 8),
+                            max_wait_ms=2.0, model_version=1, replica_id=rid,
+                            admin_endpoint=True, device="cpu").start_background()
+                for rid in ("r1", "r2")]
+    router = make_router(port=0, probe_interval_s=0.1, capture_dir=cap,
+                         replicas=[(rid, f"http://{h.address[0]}:{h.address[1]}")
+                                   for rid, h in zip(("r1", "r2"), replicas)]).start_background()
+    rurl = f"http://{router.address[0]}:{router.address[1]}"
+    thresholds = None if gate == "default" else shadowmod.ShadowThresholds(
+        max_divergence_mean=1.0, max_divergence_p95=1.0, max_flip_rate=1.0,
+        max_score_psi=1e6, max_candidate_psi=1e6, max_disagreement_delta=1.0)
+    try:
+        import time
+        import urllib.request
+
+        deadline = time.monotonic() + 30
+        while router.registry.ready_count() < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        names = list(EXAMPLE_PATIENT)
+        for row in shifted:      # traffic through the router fills its capture
+            body = json.dumps({k: float(v) for k, v in zip(names, row)}).encode()
+            with urllib.request.urlopen(urllib.request.Request(rurl + "/predict", data=body),
+                                        timeout=30) as resp:
+                assert resp.status == 200
+        loop = loopmod.LearnLoop(model, cap, str(tmp_path / "cand"), rurl,
+                                 policy=triggermod.TriggerPolicy(schedule_s=0.01),
+                                 cfg=ExperimentConfig.from_dict(FAST), thresholds=thresholds,
+                                 poll_interval_s=0.05, min_rows=200, recovery_timeout_s=0.5,
+                                 settle_timeout_s=0, device="cpu")
+        events = _journaled(tmp_path, lambda: loop.run(max_cycles=1))
+        (cycle,) = loop.cycles
+        kinds = [e["kind"] for e in events]
+        assert kinds.index("learn_trigger") < kinds.index("learn_retrain_start") < \
+            kinds.index("learn_shadow_verdict") < kinds.index("learn_cycle_done")
+        if gate == "open":
+            assert cycle["outcome"] == "promoted", cycle
+            assert cycle["promotion"]["deploy"]["result"] == "ok"
+            assert kinds.index("fleet_deploy_start") < kinds.index("fleet_deploy_done") < \
+                kinds.index("learn_promotion")
+            assert checkpoint.checkpoint_version(model) == 2
+            assert all(h.model_version == 2 for h in replicas)
+            deadline = time.monotonic() + 10      # the registry learns it by probe
+            while [r["version"] for r in router.registry.snapshot()] != [2, 2]:
+                assert time.monotonic() < deadline, router.registry.snapshot()
+                time.sleep(0.05)
+        else:
+            assert cycle["outcome"] == "refused" and not cycle["verdict"]["pass"]
+            assert promotemod.is_parked(tmp_path / "cand")
+            assert checkpoint.checkpoint_version(model) == 1
+            assert [r["version"] for r in router.registry.snapshot()] == [1, 1]
+    finally:
+        router.shutdown()
+        for h in replicas:
+            h.shutdown()

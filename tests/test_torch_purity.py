@@ -107,6 +107,36 @@ def test_importing_every_port_module_loads_no_jax():
     assert not sorted(m for m in added if m.split(".")[0] in ("sklearn", "matplotlib"))
 
 
+FLEET_MODULES = (
+    "machine_learning_replications_tpu_torch.fleet",
+    "machine_learning_replications_tpu_torch.obs.fleetmetrics",
+    "machine_learning_replications_tpu_torch.obs.fleettrace",
+    "machine_learning_replications_tpu_torch.learn.trigger",
+    "machine_learning_replications_tpu_torch.learn.promote",
+    "machine_learning_replications_tpu_torch.cli",
+)
+
+
+def test_fleet_modules_load_neither_torch_nor_jax():
+    """The fleet's router, autoscaler and status processes touch no card:
+    importing what they run (and the CLI that starts them) leaves torch
+    out of ``sys.modules``, as JAX's fleet leaves out jax."""
+    probe = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {FLEET_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps({'before': sorted(before), 'after': sorted(sys.modules)}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    added = set(seen["after"]) - set(seen["before"])
+    assert set(FLEET_MODULES) <= added
+    loaded = sorted(m for m in added if m.split(".")[0] in ("torch", "jax", "jaxlib", "flax"))
+    assert not loaded, loaded
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -313,8 +313,15 @@ def _cli(*argv, **kw):
 
 
 def test_cli_serve_refuses_unported_options():
-    out = _cli("serve", "--device", "cpu", "--pkl", str(FIXTURE), "--workers", "2")
-    assert out.returncode != 0 and "item 8b" in out.stderr
+    # what JAX's CLI refuses with --workers N, and the pickle the port lacks
+    out = _cli("serve", "--device", "cpu", "--pkl", str(FIXTURE), "--workers", "2", "--port", "0")
+    assert out.returncode != 0 and "fixed --port" in out.stderr
+    out = _cli("serve", "--device", "cpu", "--pkl", str(FIXTURE), "--workers", "2",
+               "--port", "18999", "--admin-endpoint")
+    assert out.returncode != 0 and "--admin-endpoint is incompatible" in out.stderr
+    out = _cli("serve", "--device", "cpu", "--pkl", str(FIXTURE), "--workers", "2",
+               "--port", "18999", "--incident-dir", "inc")
+    assert out.returncode != 0 and "--incident-dir is not supported" in out.stderr
     out = _cli("serve", "--device", "cpu")
     assert out.returncode != 0 and "hf_predict_model.pkl" in out.stderr
 

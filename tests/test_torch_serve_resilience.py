@@ -287,6 +287,10 @@ def test_rollback_telemetry_equals_jax(tmp_path, jax_params, params):
 
 
 def test_admin_deploy_swaps_version_then_rolls_back(tmp_path, params, run_journal):
+    from machine_learning_replications_tpu_torch.serve.server import DEPLOYS
+
+    # the counter is process-global: other files' deploys may share the worker
+    before = {r: DEPLOYS.labels(result=r).value for r in ("ok", "rolled_back", "failed")}
     path = str(tmp_path / "model")
     assert checkpoint.save_model(path, params) == 1
     loaded, info = checkpoint.load_model_versioned(path, device="cpu")
@@ -318,9 +322,8 @@ def test_admin_deploy_swaps_version_then_rolls_back(tmp_path, params, run_journa
         assert _post(url + "/predict", dict(EXAMPLE_PATIENT))[1]["probability"] == want
         assert _get(url + "/admin/deploy")[1]["model_version"] == 2
         page = urllib.request.urlopen(url + "/metrics", timeout=10).read().decode()
-        for line in ('serve_deploys_total{result="ok"} 1', 'serve_deploys_total{result="rolled_back"} 1',
-                     'serve_deploys_total{result="failed"} 1'):
-            assert line in page
+        for result, n in before.items():
+            assert f'serve_deploys_total{{result="{result}"}} {n + 1:g}' in page
     finally:
         handle.shutdown()
     kinds = [e["kind"] for e in _events(run_journal)]
