@@ -128,22 +128,43 @@ per phase:
            fixture, ``cli predict --model`` on the import and ``cli predict
            --pkl`` on the fixture, each a subprocess on the card, all three
            lines equal to the CPU port's, and the imported ensemble's
-           ``[64, 17]`` probabilities card against CPU at (1e-5, 1e-8).
+           ``[64, 17]`` probabilities card against CPU at (1e-5, 1e-8);
+  distributed  the data-parallel paths (``parallel/``): a one-rank NCCL world
+           in this process, ``fit_gbdt_sharded`` on the train phase's rows
+           (100 stumps through the stump trainer, 100 depth-3 trees through
+           the level-wise trainer; cold, warm, the all-reduces per fit and
+           their seconds by CUDA events) against the single-device fits
+           (forests equal but for a tie at depth 1, deviance at rtol 1e-4,
+           AUC within 0.005); then two ranks sharing the card on gloo as CLI
+           subprocesses with torch's launcher variables: ``train --synthetic
+           1426 --mesh 2 --distributed`` (AUC line equal to one process's
+           ``cli train``, each rank holding the card, rank 1 writing
+           nothing into its ``--save``), the same with a depth-2 member
+           on one shared ``--resume-dir`` (every stage written once, by
+           rank 0; each rank's two ``run_done`` with its peak memory and, between
+           them, both kernels' launches: under a mesh a depth-1 member's
+           fold fits take the stump trainer, as in JAX) and ``sweep
+           --synthetic 50000 --mesh 2 --distributed`` (grid within 0.005 of
+           the cli phase's in-process grid).
 
 The kernel phase also checks and times the stump entry at the exact
 splitter's shapes: int32 bins, B = the cohort's unique values per column
 (1427 at 1427 rows, 49,861 at 50,000), and both entries at the shapes the
 ``train`` route gives them (the member's at 713 rows; the 5 fold fits' root
-level at 713 and 50,000 rows).
+level at 713 and 50,000 rows), and both entries at a rank's shape in a
+two-rank world (500,000 rows of the cohort's u8 bins; the node entry at
+depth 3's last level).
 
 Launch counts are set to 0 just before each of train, train_depth,
 fit_exact, sweep, serve, predict, serve_http, score, learn (its in-process
-``warm_refit``), fleet, cli (its in-process ``cli sweep``) and
-train_pipeline (its reference-size fit and its scaled fit) and read just
-after; each kernel entry must have launched on that path, and none on the
-predict, serve_http and score paths. The fleet phase's launches are those
-its ``learn run`` subprocess journals in ``run_done`` (its replicas journal
-none, and the script's own process launches nothing there).
+``warm_refit``), fleet, cli (its in-process ``cli sweep``), distributed (each
+one-rank fit) and train_pipeline (its reference-size fit and its scaled
+fit) and read just after; each kernel entry must have launched on that
+path, and none on the predict, serve_http and score paths. The fleet
+phase's launches are those its ``learn run`` subprocess journals in
+``run_done`` (its replicas journal none, and the script's own process
+launches nothing there); the distributed phase adds those its two
+``train`` ranks journal.
 
 Then the kernel table ``{"kernels": [...]}``, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -567,36 +588,44 @@ def phase_node_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) 
 
     # Times at depth 3's last level (K = 4, int32 node ids as the grower's),
     # cold L2; the same call on uniform bins.
-    K = 4
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     uniform = pattern_bins("uniform", rng, n, F, B, dev)
-    active = (node4 >= 0).float()
-    vals = torch.stack([g * active, h * active, g * g * active, active], dim=1)
-    ids = ((node4.clamp_min(0)[:, None] * F + torch.arange(F, device=dev)[None, :]) * B
-           + binned.long()).reshape(-1)
-    src = vals[:, None, :].expand(n, F, 4).reshape(n * F, 4).contiguous()
-    lib_out = torch.zeros(K * F * B, 4, dtype=torch.float32, device=dev)
-    ms = timed_ms(lambda: cuda_histogram.node_histograms_cuda(binned, node4, g, h, K, B), flush)
-    uniform_ms = timed_ms(lambda: cuda_histogram.node_histograms_cuda(uniform, node4, g, h, K, B),
-                          flush)
-    plain_ms = timed_ms(lambda: histogram.node_histograms(binned, node4, g, h, K, B), flush,
-                        reps=20)
-    library_ms = timed_ms(lambda: lib_out.index_add_(0, ids, src), flush)
-    del flush, src, ids, uniform
-    # The bound: the wrapper's inputs (u8 bins, int32 nodes, float32 g and h)
-    # read once and its four [K, F, B] float32 outputs written once, over HBM;
-    # 4 additions per active (row, feature) over the float32 rate.
-    timing = {"ms": ms, "uniform_bins_ms": uniform_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms,
-              **bound(n * F * binned.element_size() + n * node4.element_size() + 2 * n * 4
-                      + 4 * K * F * B * 4, 4 * F * int((node4 >= 0).sum()), peaks, "float32"),
-              "reps": 30, "l2": "flushed before each call",
-              "timed_shape": {"n": n, "F": F, "K": K, "B": B, "nodes": "int32",
-                              "inactive_share": float((node4 < 0).float().mean())}}
+    timing = {**time_node(binned, node4, g, h, 4, B, flush, peaks),
+              "uniform_bins_ms": timed_ms(
+                  lambda: cuda_histogram.node_histograms_cuda(uniform, node4, g, h, 4, B), flush)}
+    del flush, uniform
     emit({"phase": "kernels", "kernel": "node_histograms", "checks": checks, **timing})
     worst = max(checks, key=lambda c: c["max_err_over_mass"])
     main = next(c for c in checks if c["shape"] == "fit_level_K4")
     return {"max_abs_err": main["max_abs_err"], "worst_err_over_mass": worst, **timing}
+
+
+def time_node(binned, node, g, h, K: int, B: int, flush, peaks: dict) -> dict:
+    """The node kernel's time per call on these inputs (cold L2), its plain
+    version's, one ``index_add_`` computing the same sums, and the bound:
+    the wrapper's inputs (u8 bins, int32 nodes, float32 g and h) read once
+    and its four ``[K, F, B]`` float32 outputs written once over HBM, 4
+    additions per active (row, feature) over the float32 rate."""
+    n, F = binned.shape
+    dev = binned.device
+    active = (node >= 0).float()
+    vals = torch.stack([g * active, h * active, g * g * active, active], dim=1)
+    ids = ((node.clamp_min(0)[:, None] * F + torch.arange(F, device=dev)[None, :]) * B
+           + binned.long()).reshape(-1)
+    src = vals[:, None, :].expand(n, F, 4).reshape(n * F, 4).contiguous()
+    lib_out = torch.zeros(K * F * B, 4, dtype=torch.float32, device=dev)
+    out = {"ms": timed_ms(lambda: cuda_histogram.node_histograms_cuda(binned, node, g, h, K, B),
+                          flush),
+           "plain_ms": timed_ms(lambda: histogram.node_histograms(binned, node, g, h, K, B), flush,
+                                reps=20),
+           "library_ms": timed_ms(lambda: lib_out.index_add_(0, ids, src), flush),
+           **bound(n * F * binned.element_size() + n * node.element_size() + 2 * n * 4
+                   + 4 * K * F * B * 4, 4 * F * int((node >= 0).sum()), peaks, "float32"),
+           "reps": 30, "l2": "flushed before each call",
+           "timed_shape": {"n": n, "F": F, "K": K, "B": B, "nodes": "int32",
+                           "inactive_share": float((node < 0).float().mean())}}
+    del src, ids, lib_out
+    return out
 
 
 def fit_timed(Xd, yd, cfg, dev):
@@ -2314,6 +2343,259 @@ def phase_cli(rows: int, seed: int, dev) -> dict:
     out.update(import_s=import_s, predict_model_s=model_s, predict_pkl_s=pkl_s,
                import_lines=lines, import_max_abs_err_vs_cpu=err.max().item())
     emit(out)
+    return launches, grid
+
+
+RANK_ROWS = 500_000   # one rank's rows of the 1M-row cohort in a two-rank world
+DIST_TRAIN_ROWS = 1426
+# ``fit_pipeline``'s stage checkpoints, each under its own name.
+PIPELINE_STAGES = ("impute", "select", "member_svc", "member_gbdt", "member_lg", "meta_svc_oof",
+                   "meta_gbdt_oof", "meta_lg_oof", "meta", "quality_profile")
+
+
+def phase_rank_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) -> dict:
+    """Both kernel entries at a rank's shape in a two-rank world: the stump
+    entry on the first 500,000 rows of the cohort's u8 bins (float32) and the
+    node entry at depth 3's last level (K = 4, int32 node ids) on the same
+    rows, held to their plain versions (``compare``, node counts exactly) and
+    timed as ``time_stump`` / ``time_node`` time them."""
+    n, B = RANK_ROWS, 256
+    bins, gg, hh = binned[:n], g[:n], h[:n]
+    rng = np.random.default_rng(seed + 11)
+    node = torch.as_tensor(rng.integers(-1, 4, size=n).astype(np.int32), device=dev)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    got = cuda_histogram.stump_histograms_cuda(bins, gg, hh, B)
+    want = histogram.stump_histograms_reference(bins, gg, hh, B)
+    mass = histogram.stump_histograms_reference(bins, gg.abs(), hh.abs(), B)
+    torch.cuda.synchronize()
+    res = compare(got, want, mass, torch.float32)
+    check(res["ok"], f"stump kernel vs plain at a rank's shape: {res}")
+    stump = {"n": n, "F": bins.shape[1], "B": B, "bins": "uint8", "vals": "float32", **res,
+             **time_stump(bins, gg, hh, B, flush, peaks)}
+    got = cuda_histogram.node_histograms_cuda(bins, node, gg, hh, 4, B)
+    want = histogram.node_histograms(bins, node, gg, hh, 4, B)
+    mass = histogram.node_histograms(bins, node, gg.abs(), hh.abs(), 4, B)
+    torch.cuda.synchronize()
+    stats = {st: compare(getattr(got, st), getattr(want, st), getattr(mass, st), torch.float32)
+             for st in STATS}
+    exact = bool(torch.equal(got.count, want.count))
+    check(exact and all(v["ok"] for v in stats.values()),
+          f"node kernel vs plain at a rank's shape: {stats}")
+    nodes = {"n": n, "F": bins.shape[1], "K": 4, "B": B, "bins": "uint8", "vals": "float32",
+             "counts_exact": exact,
+             "max_abs_err": max(v["max_abs_err"] for v in stats.values()),
+             "max_err_over_mass": max(v["max_err_over_mass"] for v in stats.values()),
+             **time_node(bins, node, gg, hh, 4, B, flush, peaks)}
+    del flush
+    emit({"phase": "kernels", "shapes": "rank", "stump_histograms": stump,
+          "node_histograms": nodes})
+    return {"stump_histograms": [stump], "node_histograms": [nodes]}
+
+
+def sharded_fit_timed(mesh, Xd, yd, cfg):
+    from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, aux = fit_gbdt_sharded(mesh, Xd, yd, cfg)
+    torch.cuda.synchronize()
+    return params, aux, time.perf_counter() - t0
+
+
+def rank_env(port: int, rank: int) -> dict:
+    """torch's launcher variables for rank ``rank`` of a two-rank world."""
+    return dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                RANK=str(rank), LOCAL_RANK=str(rank))
+
+
+def grid_of(stdout: str) -> np.ndarray:
+    """The mean-AUC grid ``cli sweep`` printed."""
+    lines = stdout.strip().splitlines()
+    return np.array([[float(t) for t in ln.split()[1:]] for ln in lines[-4:-1]])
+
+
+def phase_distributed(X17: np.ndarray, yf: np.ndarray, seed: int, cli_grid: np.ndarray,
+                      dev) -> dict:
+    """The port's data-parallel paths on the card (``parallel/``).
+
+    A one-rank NCCL world in this process: ``fit_gbdt_sharded`` on the train
+    phase's 1M x 17 float32 rows, 100 stumps (the stump trainer, u8 bins) and
+    100 depth-3 trees (the level-wise trainer), cold, warm and once with
+    every all-reduce timed by CUDA events; held to the single-device fits
+    (forests equal but for a tie the single fit shows at depth 1, deviance
+    at rtol 1e-4, AUC within 0.005); the group destroyed after. Then two
+    ranks sharing the card (gloo, the launcher's variables set here) as CLI
+    subprocesses, beside ``cli train`` in one process: ``train --synthetic
+    1426 --mesh 2 --distributed`` (each rank's AUC line equal to the
+    single-process line; each rank holds the card; rank 1, given its own
+    ``--save``, writes nothing there) and the same with a depth-2 member
+    on one ``--resume-dir`` both ranks share (rank 0 writes every stage)
+    (under a mesh the depth-1 member's fold fits take the stump trainer, as
+    in JAX; the depth-2 member and its folds the level-wise one): each
+    rank's two ``run_done`` carry its peak memory and, between them, both
+    kernel entries' launches, and ``sweep --synthetic 50000 --mesh 2
+    --distributed`` (its grid within 0.005 of the cli phase's in-process
+    grid). Returns the launches: this process's and the ranks' journals'."""
+    import tempfile
+
+    from machine_learning_replications_tpu_torch.parallel import distributed, make_mesh
+    from machine_learning_replications_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    out = {"phase": "distributed"}
+    Xd = torch.as_tensor(X17, device=dev)
+    yd = torch.as_tensor(yf, device=dev)
+    check(torch.distributed.is_nccl_available(), "this torch build has NCCL")
+    check(distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev),
+          "a one-rank world is up")
+    out["bringup"] = dict(distributed.BRINGUP)
+    check(out["bringup"]["backend"] == "nccl", f"one rank, one card: NCCL {out['bringup']}")
+    launches = {"stump_histograms": 0, "node_histograms": 0}
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        for name, cfg, counter in (
+                ("stump", GBDTConfig(splitter="hist", n_estimators=100), "stump_histograms"),
+                ("depth3", GBDTConfig(splitter="hist", max_depth=3, n_estimators=100,
+                                      n_bins=256), "node_histograms")):
+            cuda_histogram.reset_launch_counts()
+            params, aux, cold = sharded_fit_timed(mesh, Xd, yd, cfg)
+            run = dict(cuda_histogram.LAUNCHES)
+            check(run[counter] == cfg.n_estimators * cfg.max_depth
+                  and sum(run.values()) == run[counter],
+                  f"one {counter} launch per tree level: {run}")
+            launches[counter] += run[counter]
+            warm = [sharded_fit_timed(mesh, Xd, yd, cfg)[2] for _ in range(3)]
+            pmesh.COLLECTIVES["all_reduce"] = 0
+            with pmesh.timed() as ar_seconds:
+                timed_s = sharded_fit_timed(mesh, Xd, yd, cfg)[2]
+            n_ar = pmesh.COLLECTIVES["all_reduce"]
+            single, single_aux, single_s = fit_timed(Xd, yd, cfg, dev)
+            auc = roc_auc(yf, tree.predict_proba1(params, Xd).cpu().numpy())
+            auc_single = roc_auc(yf, tree.predict_proba1(single, Xd).cpu().numpy())
+            dk = torch.as_tensor(aux["train_deviance"]).double().cpu()
+            ds = torch.as_tensor(single_aux["train_deviance"]).double().cpu()
+            dev_rel = ((dk - ds).abs() / ds.abs()).max().item()
+            check(bool(torch.isfinite(dk).all()) and dk.shape == (cfg.n_estimators,),
+                  "finite deviance path")
+            check(dev_rel <= 1e-4, f"sharded vs single deviance at rtol 1e-4: {dev_rel}")
+            check(abs(auc - auc_single) <= 0.005, f"AUC within 0.005: {auc} {auc_single}")
+            res = {"rows": int(Xd.shape[0]), "n_estimators": cfg.n_estimators,
+                   "max_depth": cfg.max_depth, "launches": run, "cold_fit_s": cold,
+                   "warm_fit_s": statistics.median(warm), "warm_fit_runs_s": warm,
+                   "single_device_warm_fit_s": single_s, "all_reduces_per_fit": n_ar,
+                   "all_reduce_s": sum(ar_seconds), "timed_fit_s": timed_s,
+                   "auc": auc, "auc_single": auc_single, "deviance_max_rel_diff": dev_rel,
+                   "split_feature_agreement": float((params.feature == single.feature)
+                                                    .float().mean())}
+            if cfg.max_depth == 1:
+                res.update(forests_agree(params, single, X17, yf, dev))
+            out[name] = res
+    finally:
+        distributed.shutdown()
+
+    # Two ranks sharing the card, as CLI subprocesses, beside one process.
+    root = Path(__file__).resolve().parent
+    scratch = cuda_histogram.BUILD_DIR.parent
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        train_port, sweep_port = free_port(), free_port()
+        jobs = {}
+        single_env = {k: v for k, v in os.environ.items()
+                      if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                                   "LOCAL_RANK")}
+        cmds = {"train_single": (["train", "--synthetic", str(DIST_TRAIN_ROWS), "--seed",
+                                  str(seed)], single_env)}
+        # Under a mesh the depth-1 member's fold fits run on the stump trainer,
+        # as in JAX, so the default config launches only the stump entry; a
+        # depth-2 member (its fold fits too) runs the level-wise trainer.
+        Path(f"{tmp}/depth2.json").write_text(json.dumps({"gbdt": {"max_depth": 2}}))
+        depth2_port = free_port()
+        for r in range(2):
+            cmds[f"train_r{r}"] = (["train", "--synthetic", str(DIST_TRAIN_ROWS), "--seed",
+                                    str(seed), "--mesh", "2", "--distributed",
+                                    "--save", f"{tmp}/save{r}", "--journal", f"{tmp}/j.jsonl"],
+                                   rank_env(train_port, r))
+            cmds[f"train2_r{r}"] = (["train", "--synthetic", str(DIST_TRAIN_ROWS), "--seed",
+                                     str(seed), "--config", f"{tmp}/depth2.json", "--mesh", "2",
+                                     "--distributed", "--journal", f"{tmp}/j2.jsonl",
+                                     "--resume-dir", f"{tmp}/stages2"],
+                                    rank_env(depth2_port, r))
+            cmds[f"sweep_r{r}"] = (["sweep", "--synthetic", "50000", "--seed", str(seed),
+                                    "--mesh", "2", "--distributed"], rank_env(sweep_port, r))
+        t0 = time.perf_counter()
+        for name, (argv, env) in cmds.items():
+            jobs[name] = subprocess.Popen(
+                [sys.executable, "-m", "machine_learning_replications_tpu_torch", *argv],
+                env=env, cwd=root, stdout=open(f"{tmp}/{name}.out", "w"),
+                stderr=open(f"{tmp}/{name}.err", "w"))
+        held, seconds = {}, {}
+        rank_jobs = {name for name in jobs if "_r" in name}
+        try:  # each rank's first sight holding the card, each process's end
+            while len(seconds) < len(jobs) and time.perf_counter() - t0 < 900:
+                for name, p in jobs.items():
+                    if name in seconds:
+                        continue
+                    if p.poll() is not None:
+                        seconds[name] = time.perf_counter() - t0
+                    elif name in rank_jobs and name not in held and holds_card(p.pid):
+                        held[name] = time.perf_counter() - t0
+                time.sleep(0.25)
+        finally:
+            for p in jobs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        logs = {name: (Path(f"{tmp}/{name}.out").read_text(), Path(f"{tmp}/{name}.err").read_text())
+                for name in jobs}
+        for name, p in jobs.items():
+            check(p.returncode == 0, f"{name} exits 0: {logs[name][1][-2000:]}")
+        check(set(held) == rank_jobs, f"every rank held the card: {held}")
+        want_line = logs["train_single"][0].strip().splitlines()[-1]
+        lines = [logs[f"train_r{r}"][0].strip().splitlines()[-1] for r in range(2)]
+        check(want_line.startswith("AUC-ROC") and lines == [want_line, want_line],
+              f"two-rank cli train's AUC lines {lines} vs one process's {want_line!r}")
+        for r in range(2):
+            check("distributed runtime up (gloo: 2 ranks share 1 card" in logs[f"train_r{r}"][1],
+                  f"rank {r} declares gloo for two ranks on one card")
+        check(Path(f"{tmp}/save0/model.json").exists() and not Path(f"{tmp}/save1").exists(),
+              "rank 0 saved; rank 1 wrote nothing into its --save")
+        stages2 = sorted(os.listdir(f"{tmp}/stages2"))
+        check(stages2 == sorted(["fingerprint.json", *PIPELINE_STAGES]),
+              f"the depth-2 pair's shared --resume-dir holds every stage once: {stages2}")
+        ranks = []
+        for r in range(2):
+            rank = {"rank": r}
+            for run, journal in (("default", "j.jsonl"), ("depth2", "j2.jsonl")):
+                with open(f"{tmp}/{journal}" + (f".rank{r}" if r else "")) as f:
+                    records = [json.loads(line) for line in f]
+                man, done = records[0], records[-1]
+                check(man.get("rank") == r and man["distributed"]["backend"] == "gloo"
+                      and done["kind"] == "run_done"
+                      and done.get("cuda_max_memory_allocated_bytes", 0) > 0,
+                      f"rank {r}'s {run} journal: {man} {done}")
+                rl = done.get("torch_kernel_launches_total", {})
+                for k in launches:
+                    launches[k] += rl.get(k, 0)
+                rank[run] = {"launches": rl, "manifest_distributed": man["distributed"],
+                             "cuda_max_memory_allocated_bytes":
+                                 done.get("cuda_max_memory_allocated_bytes")}
+            check(rank["default"]["launches"].get("stump_histograms", 0) > 0
+                  and rank["depth2"]["launches"].get("node_histograms", 0) > 0,
+                  f"rank {r} launched both kernel entries: {rank}")
+            ranks.append(rank)
+        grids = [grid_of(logs[f"sweep_r{r}"][0]) for r in range(2)]
+        check(np.array_equal(grids[0], grids[1]), "both sweep ranks print one grid")
+        diff = float(np.abs(grids[0] - cli_grid).max())
+        check(grids[0].shape == cli_grid.shape and diff <= 0.005,
+              f"two-rank sweep grid within 0.005 of the in-process grid: {diff}")
+    out.update(train_two_ranks={"rows": DIST_TRAIN_ROWS, "seconds": seconds,
+                                "held_card_after_s": held, "auc_line": want_line, "ranks": ranks,
+                                "depth2_resume_dir": stages2},
+               sweep_two_ranks={"rows": 50_000, "grid": grids[0].tolist(),
+                                "grid_max_abs_diff_vs_in_process": diff,
+                                "best_line": logs["sweep_r0"][0].strip().splitlines()[-1]},
+               launches=launches, seconds=time.perf_counter() - t_phase)
+    emit(out)
     return launches
 
 
@@ -2513,6 +2795,10 @@ def main(argv=None) -> int:
     kern["stump_histograms"]["exact_shapes"] = phase_exact_kernels(peaks, args.seed, dev)
     for name, shapes in phase_train_kernels(peaks, args.seed, dev).items():
         kern[name]["train_shapes"] = shapes
+    binned, g, h = stage_inputs(X17, yf, args.seed, dev)
+    for name, shapes in phase_rank_kernels(binned, g, h, peaks, args.seed, dev).items():
+        kern[name]["rank_shapes"] = shapes
+    del binned, g, h
     torch.cuda.empty_cache()
 
     # The main path, one phase at a time: counts from 0 before, read after.
@@ -2533,7 +2819,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     runs.append(phase_fleet(gbdt_params, X17, args.seed, ready_s, dev))
     torch.cuda.empty_cache()
-    runs.append(phase_cli(args.sweep_rows, args.seed, dev))
+    cli_launches, cli_grid = phase_cli(args.sweep_rows, args.seed, dev)
+    runs.append(cli_launches)
+    torch.cuda.empty_cache()
+    runs.append(phase_distributed(X17, yf, args.seed, cli_grid, dev))
     torch.cuda.empty_cache()
     per_fit = phase_train_pipeline(args.seed, SCALED_ROWS, dev)
     runs.extend(per_fit.values())
@@ -2554,7 +2843,7 @@ def main(argv=None) -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         **{group: [{key: e[key] for key in SHAPE_KEYS if key in e} for e in k[group]]
-           for group in ("exact_shapes", "train_shapes") if group in k},
+           for group in ("exact_shapes", "train_shapes", "rank_shapes") if group in k},
     } for name, k in kern.items()]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,14 @@
     python -m machine_learning_replications_tpu_torch train \\
         [--develop MAT --select MAT | --synthetic N] [--missing-rate R] \\
         [--seed S] [--config JSON] [--save DIR] [--resume-dir DIR] \\
-        [--plots DIR] [--trace-dir DIR] [--journal JSONL] [--device cpu|cuda]
+        [--plots DIR] [--trace-dir DIR] [--journal JSONL] [--device cpu|cuda] \\
+        [--mesh DATA[,MODEL]|auto] [--distributed]
     python -m machine_learning_replications_tpu_torch predict \\
         [--model DIR | --pkl PICKLE] [--patient JSON] \\
         [--trace-dir DIR] [--journal JSONL] [--device cpu|cuda]
     python -m machine_learning_replications_tpu_torch sweep \\
         [cohort flags as train] [--n-estimators M ...] [--max-depth D ...] \\
-        [--folds K] [--save DIR] [--device cpu|cuda]
+        [--folds K] [--save DIR] [--device cpu|cuda] [--mesh ...] [--distributed]
     python -m machine_learning_replications_tpu_torch import-sklearn \\
         --pkl PICKLE --out DIR [--device cpu|cuda]
     python -m machine_learning_replications_tpu_torch serve \\
@@ -36,6 +37,15 @@ with ``--save`` writes a port checkpoint. Without ``.mat`` paths the two
 cohorts are the disjoint halves of ``make_cohort(2 · --synthetic)``.
 ``--resume-dir`` checkpoints every stage so a re-run with the same inputs
 resumes.
+
+``--mesh DATA[,MODEL]`` (or ``auto``: every rank on the data axis) runs
+``train`` and ``sweep`` data-parallel over a mesh of ranks (``parallel/``),
+one process per rank; ``--distributed`` first joins the process group from
+torch's launcher variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``): NCCL where each rank has a card of its own, gloo
+on the CPU or where ranks share a card. Every rank computes and prints its
+report; only rank 0 writes ``--save``, ``--plots`` and ``--trace-dir``, and
+rank k > 0 journals to ``<--journal>.rank<k>``, not into rank 0's file.
 
 ``predict`` loads a port checkpoint (``--model``, ``persist/checkpoint.py``)
 or a sklearn pickle (``--pkl``; one of the two is needed: the reference's
@@ -72,7 +82,8 @@ None of them imports torch or touches the card.
 ``score`` streams a cohort file (JSONL patient dicts or a reference-layout
 ``.mat``) through the overlapped ingest → device pipeline (``score/``) into
 sharded, resumable output, as the JAX CLI's does; its ``--mesh`` and
-``--distributed`` exit naming ROADMAP item 7, and ``--xla-intra-op-threads
+``--distributed`` exit (a sharded scoring tail needs its own design: the
+remaining piece of ROADMAP item 7), and ``--xla-intra-op-threads
 N`` bounds torch's host threads (``torch.set_num_threads``). ``learn
 retrain`` refits the live checkpoint's family on captured traffic into a
 versioned candidate, ``learn shadow`` replays the capture through both and
@@ -110,6 +121,69 @@ def _device(args, command: str) -> torch.device:
         return resolve_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"{command}: {exc}")
+
+
+def _bring_up(args) -> bool:
+    """``--distributed``: join the process group before anything touches
+    the card (a CUDA rank's card is set by the bring-up). True when this
+    call brought a process group up."""
+    if not getattr(args, "distributed", False):
+        return False
+    import torch.distributed as dist
+
+    from machine_learning_replications_tpu_torch.parallel import distributed
+
+    if dist.is_initialized():  # the caller's group: it is the caller's to end
+        return False
+    if distributed.initialize_distributed(device=args.device):
+        return True
+    print("distributed runtime unavailable (single host)", file=sys.stderr)
+    return False
+
+
+def _build_mesh(args, dev: torch.device):
+    """``--mesh DATA[,MODEL]`` or ``auto`` → a mesh of the process group's
+    ranks on ``dev`` (None without the flag), announced on stderr. A rank
+    other than 0 leaves ``--save``, ``--plots`` and ``--trace-dir`` to rank 0
+    and journals to ``<--journal>.rank<k>``; every rank reads ``--resume-dir``,
+    which rank 0 alone writes."""
+    if not args.mesh:
+        return None
+    from machine_learning_replications_tpu_torch.parallel import make_mesh
+
+    if args.mesh == "auto":
+        parts = [None, 1]
+    else:
+        try:
+            parts = [int(p) for p in args.mesh.split(",")]
+        except ValueError:
+            parts = []
+        if len(parts) == 1:
+            parts.append(1)
+        if len(parts) != 2:
+            raise SystemExit(f"--mesh expects DATA[,MODEL] or 'auto', got {args.mesh!r}")
+    try:
+        mesh = make_mesh(data=parts[0], model=parts[1], device=dev)
+    except ValueError as exc:
+        raise SystemExit(f"--mesh {args.mesh}: {exc}")
+    print(f"mesh {mesh.shape}", file=sys.stderr)
+    if mesh.rank != 0:
+        for name in ("save", "plots", "trace_dir"):
+            if hasattr(args, name):
+                setattr(args, name, None)
+        if getattr(args, "journal", None):
+            args.journal = f"{args.journal}.rank{mesh.rank}"
+    return mesh
+
+
+def _mesh_manifest(mesh) -> "dict | None":
+    """The run journal's record of the mesh and the bring-up's backend choice."""
+    if mesh is None:
+        return None
+    from machine_learning_replications_tpu_torch.parallel import distributed
+
+    return {"mesh": dict(mesh.shape), "rank": mesh.rank,
+            "distributed": dict(distributed.BRINGUP) or None}
 
 
 def _load_patient(path: str | None) -> np.ndarray:
@@ -220,13 +294,27 @@ def _observed(args, command: str, config_json: str | None = None,
 
 
 def cmd_train(args) -> int:
-    dev = _device(args, "train")
-    cfg = _config(args)
-    with _observed(args, "train", config_json=cfg.to_json()):
-        return _run_train(args, cfg, dev)
+    brought_up = _bring_up(args)
+    try:
+        dev = _device(args, "train")
+        mesh = _build_mesh(args, dev)
+        cfg = _config(args)
+        with _observed(args, "train", config_json=cfg.to_json(),
+                       manifest_extra=_mesh_manifest(mesh)) as done:
+            rc = _run_train(args, cfg, dev, mesh)
+            if dev.type == "cuda":
+                import torch
+
+                done["cuda_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+            return rc
+    finally:
+        if brought_up:
+            from machine_learning_replications_tpu_torch.parallel import distributed
+
+            distributed.shutdown()
 
 
-def _run_train(args, cfg, dev: torch.device) -> int:
+def _run_train(args, cfg, dev: torch.device, mesh=None) -> int:
     from machine_learning_replications_tpu_torch.device import to_host
     from machine_learning_replications_tpu_torch.models import pipeline
     from machine_learning_replications_tpu_torch.obs import spans
@@ -236,10 +324,10 @@ def _run_train(args, cfg, dev: torch.device) -> int:
     X_sel, y_sel = _load_cohort(args, "select")
     with spans.span("fit_pipeline", rows=int(X_dev.shape[0])):
         params, info = pipeline.fit_pipeline(X_dev, y_dev, cfg, checkpoint_dir=args.resume_dir,
-                                             device=dev)
+                                             mesh=mesh, device=dev)
     print(f"selected {info['n_selected']} features", file=sys.stderr)
     with spans.span("evaluate") as sp:
-        p1 = sp.block(pipeline.pipeline_predict_proba1(params, X_sel, device=dev))
+        p1 = sp.block(pipeline.pipeline_predict_proba1(params, X_sel, mesh=mesh, device=dev))
     p1 = to_host(p1)
     yy = (p1 > 0.5).astype(np.float64)  # train_ensemble_public.py:63
     print(metrics.report_text(metrics.classification_report(y_sel, yy)))
@@ -685,15 +773,26 @@ def _register_loop(handle, router: str, replica_id: str, advertise: str) -> None
 
 
 def cmd_sweep(args) -> int:
+    brought_up = _bring_up(args)
+    try:
+        dev = _device(args, "sweep")
+        return _run_sweep(args, dev, _build_mesh(args, dev))
+    finally:
+        if brought_up:
+            from machine_learning_replications_tpu_torch.parallel import distributed
+
+            distributed.shutdown()
+
+
+def _run_sweep(args, dev: torch.device, mesh) -> int:
     from machine_learning_replications_tpu_torch.config import SweepConfig
     from machine_learning_replications_tpu_torch.data import selected_indices
     from machine_learning_replications_tpu_torch.device import to_host
     from machine_learning_replications_tpu_torch.models import knn_impute, sweep
 
-    dev = _device(args, "sweep")
     X64, y = _load_cohort(args, "develop")
     if np.isnan(X64).any():
-        _, X64 = knn_impute.fit_transform(X64, device=dev)
+        _, X64 = knn_impute.fit_transform(X64, mesh=mesh, device=dev)
         X64 = to_host(X64)
     X = X64[:, selected_indices()]
     cfg = SweepConfig(
@@ -701,7 +800,7 @@ def cmd_sweep(args) -> int:
         max_depth_grid=tuple(args.max_depth),
         cv_folds=args.folds,
     )
-    res = sweep.cv_sweep(X, y, cfg, device=dev)
+    res = sweep.cv_sweep(X, y, cfg, mesh=mesh, device=dev)
     print(f"{'depth':>6} " + " ".join(f"m={m:>5d}" for m in res.n_estimators_grid))
     for di, d in enumerate(res.max_depth_grid):
         print(f"{d:>6} " + " ".join(f"{a:7.4f}" for a in res.mean_auc[di]))
@@ -710,7 +809,7 @@ def cmd_sweep(args) -> int:
     if args.save:
         from machine_learning_replications_tpu_torch.persist import checkpoint
 
-        params, _ = sweep.refit_best(X, y, res, device=dev)
+        params, _ = sweep.refit_best(X, y, res, mesh=mesh, device=dev)
         checkpoint.save_model(args.save, params)
         print(f"refit best model checkpointed to {args.save}", file=sys.stderr)
     return 0
@@ -741,8 +840,10 @@ def cmd_score(args) -> int:
     dev = _device(args, "score")
     if args.mesh or args.distributed:
         raise SystemExit(
-            "score: --mesh/--distributed (row-sharded device meshes) are not ported "
-            "yet: they come with data-parallel training (ROADMAP item 7)"
+            "score: --mesh/--distributed are not ported yet: a sharded scoring tail "
+            "keeps the reader, parse workers and writer on one rank while rows "
+            "scatter to the others, which needs its own design — the remaining "
+            "piece of ROADMAP item 7 (train and sweep take --mesh)"
         )
     if args.xla_intra_op_threads is not None and args.xla_intra_op_threads < 0:
         raise SystemExit("--xla-intra-op-threads must be >= 0")
@@ -1478,6 +1579,18 @@ def build_parser() -> argparse.ArgumentParser:
                        "git sha, torch/CUDA versions, the card, config hash), then stage and "
                        "checkpoint events, run_done last")
 
+    def add_mesh_flags(p, what: str):
+        p.add_argument(
+            "--mesh", default=None,
+            help="device-mesh shape DATA[,MODEL] (e.g. 8 or 4,2) or 'auto' "
+            f"(all ranks on the data axis); {what}")
+        p.add_argument(
+            "--distributed", action="store_true",
+            help="join the torch.distributed process group (torch's launcher "
+            "variables MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) "
+            "before building the mesh: NCCL when each rank has a card of its own, "
+            "gloo on the CPU or when ranks share a card")
+
     def add_device_flag(p):
         p.add_argument("--device", choices=("cpu", "cuda"), default=None,
                        help="where to run (default: the card; without CUDA this is an error)")
@@ -1490,6 +1603,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stage-checkpoint directory: each pipeline stage is published on "
                    "completion, so a re-run with the same data and config resumes (the "
                    "directory is fingerprinted against its inputs)")
+    add_mesh_flags(t, "routes the GBDT member through the row-sharded trainers")
     add_obs_flags(t)
     add_device_flag(t)
     t.set_defaults(fn=cmd_train)
@@ -1508,6 +1622,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--max-depth", type=int, nargs="+", default=[1, 2, 3])
     s.add_argument("--folds", type=int, default=5)
     s.add_argument("--save", help="checkpoint the refit best model here")
+    add_mesh_flags(s, "each (depth, fold) fit and the best-cell refit run row-sharded "
+                   "(fold masks ride the trainers' weight path)")
     add_device_flag(s)
     s.set_defaults(fn=cmd_sweep)
 
@@ -2107,12 +2223,13 @@ def add_score_parser(sub, add_obs_flags, add_device_flag) -> None:
     )
     c.add_argument(
         "--mesh", default=None,
-        help="device-mesh shape DATA[,MODEL] or 'auto' (not ported yet: "
-        "ROADMAP item 7)",
+        help="device-mesh shape DATA[,MODEL] or 'auto' (not ported yet for "
+        "score: the remaining piece of ROADMAP item 7)",
     )
     c.add_argument(
         "--distributed", action="store_true",
-        help="bring up a multi-host runtime first (not ported yet: ROADMAP item 7)",
+        help="bring up a multi-process runtime first (not ported yet for score: "
+        "ROADMAP item 7)",
     )
     add_obs_flags(c)
     add_device_flag(c)

@@ -127,9 +127,12 @@ def warm_refit(
     (``stage_seconds``). ``resume_dir`` makes the fit stage-resumable
     (``StageCheckpointer``; it is fingerprinted against the cohort, so a
     DIFFERENT captured window refuses a stale dir loudly). The fit runs on
-    ``device`` (default: the card), where ``live_params`` must lie; a
-    row-sharded refit (``mesh``) waits for data-parallel training (ROADMAP
-    item 7)."""
+    ``device`` (default: the card), where ``live_params`` must lie. With
+    ``mesh`` (a ``parallel.make_mesh`` on ``device``) the refit runs its
+    row-parallel stages sharded, every rank of the mesh calls this on the
+    same rows and the same ``out_dir`` and ``resume_dir``, rank 0 alone
+    writes them, and every rank returns once the candidate is published (or
+    raises where rank 0's publish failed)."""
     import dataclasses
 
     import torch
@@ -141,13 +144,9 @@ def warm_refit(
     )
     from machine_learning_replications_tpu_torch.models import stacking
     from machine_learning_replications_tpu_torch.obs import quality as qualitymod
+    from machine_learning_replications_tpu_torch.parallel.mesh import agree
     from machine_learning_replications_tpu_torch.persist import checkpoint
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a row-sharded refit (mesh=) is not ported yet: it comes with "
-            "data-parallel training (ROADMAP item 7)"
-        )
     dev = resolve_device(device)
     X17 = np.asarray(X17, np.float64)
     if X17.ndim != 2 or X17.shape[1] != 17:
@@ -207,7 +206,7 @@ def warm_refit(
                 checkpoint_dir=(
                     os.fspath(resume_dir) if resume_dir else None
                 ),
-                device=dev,
+                mesh=mesh, device=dev,
             )
             timings = info["stage_seconds"]
         else:  # StackingParams — the only other family past the gate
@@ -220,20 +219,23 @@ def warm_refit(
                     if resume_dir else None
                 ),
                 timings=timings,
+                mesh=mesh,
             )
             ens = pipelinemod.fit_stacking(
-                X17, y, cfg, stages=stages, device=dev
+                X17, y, cfg, stages=stages, mesh=mesh, device=dev
             )
             scores = pipelinemod._ensemble_scores(
                 ens, torch.as_tensor(X17, device=dev),
-                chunk_rows=cfg.svc.predict_chunk_rows,
+                chunk_rows=cfg.svc.predict_chunk_rows, mesh=mesh,
             )
             prof = qualitymod.build_reference_profile(X17, scores, y=y)
             candidate = dataclasses.replace(
                 ens,
                 quality={k: torch.as_tensor(v, device=dev) for k, v in prof.items()},
             )
-        checkpoint.save_model(out_dir, candidate)
+        # Rank 0 publishes; every rank returns (or raises) with its outcome.
+        agree(mesh, lambda: checkpoint.save_model(out_dir, candidate)
+              if mesh is None or mesh.rank == 0 else None)
     except BaseException as exc:
         RETRAINS.inc(result="failed")
         journal.event(

@@ -58,22 +58,26 @@ from machine_learning_replications_tpu_torch.ops import binning, histogram
 DEVICE_BINNING_MIN_ROWS = 100_000
 
 
-def default_bins(X: torch.Tensor, cfg: GBDTConfig, device: torch.device) -> binning.BinnedFeatures:
+def uses_device_binning(cfg: GBDTConfig, n_rows: int) -> bool:
+    """The binning gate: device quantiles for 'hist' fits at scale, host
+    unique-value midpoints everywhere else."""
+    return cfg.splitter == "hist" and n_rows >= DEVICE_BINNING_MIN_ROWS
+
+
+def default_bins(X: torch.Tensor, cfg: GBDTConfig, device: torch.device, *,
+                 capped: bool = False) -> binning.BinnedFeatures:
     """Binning policy for a fit that wasn't handed bins explicitly: device
     quantiles on ``device`` for 'hist' at scale, else host unique-value
-    midpoints."""
-    if cfg.splitter == "hist" and X.shape[0] >= DEVICE_BINNING_MIN_ROWS:
+    midpoints (under ``bin_budget_capped`` with ``capped``, as the fold
+    fits bin)."""
+    if uses_device_binning(cfg, X.shape[0]):
         return binning.bin_features_device(X.to(device), cfg.n_bins)
-    return binning.bin_features(to_host(X), bin_budget(cfg))
+    return binning.bin_features(to_host(X), bin_budget_capped(cfg) if capped else bin_budget(cfg))
 
 
 def uses_fused_hist1(cfg: GBDTConfig, n_rows: int) -> bool:
     """``fit``'s fused-path gate — config and shape only."""
-    return (
-        cfg.splitter == "hist"
-        and cfg.max_depth == 1
-        and n_rows >= DEVICE_BINNING_MIN_ROWS
-    )
+    return cfg.max_depth == 1 and uses_device_binning(cfg, n_rows)
 
 
 def bin_budget(cfg: GBDTConfig) -> int | None:
@@ -696,6 +700,16 @@ def _fold_params(feature, threshold, value, is_split, f0, cfg: GBDTConfig, k: in
     )
 
 
+def fold_bins(X: np.ndarray, train_mask, cfg: GBDTConfig) -> binning.BinnedFeatures:
+    """One fold's own candidates: the fold's rows (``train_mask > 0``)
+    binned on the host, then ALL rows re-binned against those thresholds
+    (excluded rows carry valid ids and zero weight)."""
+    bf = binning.bin_features(X[np.asarray(train_mask) > 0], bin_budget_capped(cfg))
+    return binning.BinnedFeatures(
+        binned=binning.rebin_with_thresholds(X, bf.thresholds, bf.n_bins),
+        thresholds=bf.thresholds, n_bins=bf.n_bins)
+
+
 def _per_fold_bins(X, train_masks, cfg: GBDTConfig):
     """Host-side per-fold candidate derivation: bin each fold's OWN rows
     (``bin_features`` on the physical subset — byte-for-byte sklearn's
@@ -707,18 +721,14 @@ def _per_fold_bins(X, train_masks, cfg: GBDTConfig):
     padded), feature_bins tuple (per-feature max over folds), max_bins)``.
     """
     X = to_host(X)
-    budget = bin_budget_capped(cfg)
-    per_fold = [
-        binning.bin_features(X[np.asarray(wk) > 0], budget)
-        for wk in to_host(train_masks)
-    ]
+    per_fold = [fold_bins(X, wk, cfg) for wk in to_host(train_masks)]
     k, (n, F) = len(per_fold), X.shape
     W = max(bf.thresholds.shape[1] for bf in per_fold)
     thr = np.full((k, F, W), np.inf)
     binned = np.zeros((k, n, F), np.int32)
     for i, bf in enumerate(per_fold):
         thr[i, :, : bf.thresholds.shape[1]] = bf.thresholds
-        binned[i] = binning.rebin_with_thresholds(X, bf.thresholds, bf.n_bins)
+        binned[i] = bf.binned
     feature_bins = tuple(
         int(max(int(bf.n_bins[f]) for bf in per_fold)) for f in range(F)
     )

@@ -184,6 +184,7 @@ def transform(
     X: "np.ndarray | torch.Tensor",
     chunk_rows: int | None = None,
     block_fn: ImputeBlock | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Impute ``X [n, F]`` → a tensor on the donors' device, in the dtype of
     ``X`` and the donors promoted together.
@@ -193,7 +194,12 @@ def transform(
     given — a pre-resolved block is valid whenever its pattern
     column-matches theirs), in blocks of ``chunk_rows`` (default
     ``ImputerConfig().chunk_rows``) so a block's ``[chunk, n_fit]`` distance
-    matrix stays bounded."""
+    matrix stays bounded.
+
+    With ``mesh`` (``parallel.make_mesh``), the incomplete rows are sharded
+    over its 'data' axis (``parallel.rowwise.apply_rows_sharded``): a row's
+    imputation depends only on the donors, which every rank holds, and
+    every rank gets the whole output."""
     chunk = ImputerConfig().chunk_rows if chunk_rows is None else chunk_rows
     X_np = to_host(X)
     dtype = torch.promote_types(torch.as_tensor(X_np[:0]).dtype, params.donors.dtype)
@@ -204,6 +210,14 @@ def transform(
         return out
     if block_fn is None:
         block_fn = resolve_block_fn(params, X_np[rows])
+    if mesh is not None:
+        from machine_learning_replications_tpu_torch.parallel.rowwise import apply_rows_sharded
+
+        # NaN pad rows impute to column means and are sliced off.
+        idx = torch.as_tensor(rows, device=out.device)
+        out[idx] = apply_rows_sharded(mesh, block_fn, params, out[idx], chunk_rows=chunk,
+                                      pad_value=np.nan)
+        return out
     return impute_rows(params, out, torch.as_tensor(rows, device=out.device), block_fn, chunk)
 
 
@@ -228,7 +242,8 @@ def fit_transform(
     seed: int = 2020,
     y: "np.ndarray | None" = None,
     *,
+    mesh=None,
     device=None,
 ) -> tuple[KNNImputerParams, torch.Tensor]:
     params = fit(X_fit, cfg, seed, y=y, device=device)
-    return params, transform(params, X_fit, cfg.chunk_rows)
+    return params, transform(params, X_fit, cfg.chunk_rows, mesh=mesh)

@@ -1,6 +1,6 @@
 """The reference program end to end: training and full-pipeline inference.
 
-Port of the JAX package's ``models/pipeline.py`` (its mesh paths aside).
+Port of the JAX package's ``models/pipeline.py``.
 
 Fit (``fit_pipeline``, ``train_ensemble_public.py``'s ``__main__``): KNN-impute
 → LassoCV-select 17 of 64 → fit the stacking ensemble → the quality reference
@@ -22,6 +22,13 @@ contract row (``predict_hf.py:5-27``: the 17 variables in contract order) is
 first embedded at its schema positions in a NaN row, so the imputer fills
 the 47 columns the contract does not carry — the ``cli predict --model``
 route.
+
+Mesh paths (``mesh=``, a ``parallel.make_mesh`` of this rank's process
+group, on the same device as ``device``): the imputer's transform and the
+stacked probability pass run row-sharded (``parallel.rowwise``), LassoCV's
+statistics row-sharded (``parallel.select_trainer``), and the GBDT member
+and its fold fits through ``parallel.fit_gbdt_sharded``; the SVC and L1-LR
+members run replicated on every rank, as in JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from machine_learning_replications_tpu_torch.models import (
     svm,
     tree,
 )
+from machine_learning_replications_tpu_torch.parallel.mesh import check_device
 from machine_learning_replications_tpu_torch.utils.cv import (
     stratified_kfold_test_masks,
     stratified_kfold_test_masks_within,
@@ -112,20 +120,23 @@ def impute_select(
     params: PipelineParams, X64: "np.ndarray | torch.Tensor",
     block_fn: "knn_impute.ImputeBlock | None" = None,
     cols: "torch.Tensor | None" = None,
+    mesh=None,
 ) -> torch.Tensor:
     """KNN-impute raw 64-wide rows and keep the support columns → the
     ensemble's ``[n, n_selected]`` input, on the imputer's device.
     ``block_fn`` is a pre-resolved imputer block for callers with a fixed
     query NaN pattern (``resolve_contract_block_fn``); ``cols`` the
-    pre-resolved ``support_columns`` (else the mask is fetched per call)."""
-    X_imp = knn_impute.transform(params.imputer, X64, block_fn=block_fn)
+    pre-resolved ``support_columns`` (else the mask is fetched per call);
+    ``mesh`` shards the imputation's rows."""
+    X_imp = knn_impute.transform(params.imputer, X64, block_fn=block_fn, mesh=mesh)
     if cols is None:
         cols = support_columns(params)
     return X_imp.index_select(1, cols.to(X_imp.device))
 
 
-def _check_device(params: PipelineParams, device) -> None:
+def _check_device(params: PipelineParams, device, mesh=None) -> None:
     dev = resolve_device(device)
+    check_device(mesh, dev)
     for name, t in (("imputer", params.imputer.donors), ("ensemble", params.ensemble.meta.coef)):
         if t.device != dev:
             raise ValueError(
@@ -135,39 +146,48 @@ def _check_device(params: PipelineParams, device) -> None:
 
 
 def pipeline_predict_proba1_contract(
-    params: PipelineParams, X17: np.ndarray, chunk_rows: int | None = None, *, device=None,
+    params: PipelineParams, X17: np.ndarray, chunk_rows: int | None = None, *, mesh=None,
+    device=None,
 ) -> torch.Tensor:
     """Contract-order 17-variable rows → stacked P(class 1) through the full
     pipeline (the ``cli predict --model`` route)."""
     return pipeline_predict_proba1(params, contract_rows_to_x64(params, X17),
-                                   chunk_rows, device=device)
+                                   chunk_rows, mesh=mesh, device=device)
 
 
 def pipeline_predict_proba1(
     params: PipelineParams, X64: "np.ndarray | torch.Tensor", chunk_rows: int | None = None,
-    *, device=None,
+    *, mesh=None, device=None,
 ) -> torch.Tensor:
     """Raw 64-variable rows (NaNs allowed) → stacked P(class 1), on
     ``device`` (default: the card), where the parameters must lie.
     ``chunk_rows`` bounds the rows per stacked pass (default
     ``SVCConfig.predict_chunk_rows``): the SVC member builds an
-    ``[rows, n_support]`` kernel block."""
-    _check_device(params, device)
-    X17 = impute_select(params, X64)
-    return _stacked_proba1_bounded(params.ensemble, X17, chunk_rows)
+    ``[rows, n_support]`` kernel block. With ``mesh`` the imputation and
+    the stacked pass run row-sharded and every rank gets every row."""
+    _check_device(params, device, mesh)
+    X17 = impute_select(params, X64, mesh=mesh)
+    return _stacked_proba1_bounded(params.ensemble, X17, chunk_rows, mesh)
 
 
 def _stacked_proba1_bounded(
-    ens: stacking.StackingParams, X17: torch.Tensor, chunk_rows: int | None,
+    ens: stacking.StackingParams, X17: torch.Tensor, chunk_rows: int | None, mesh=None,
 ) -> torch.Tensor:
     """The memory-bounded stacked-probability tail: ``stacking.predict_proba1``
     over blocks of ``chunk_rows`` rows (default
-    ``SVCConfig().predict_chunk_rows``), concatenated on the device. The rows
+    ``SVCConfig().predict_chunk_rows``), concatenated on the device; with a
+    mesh, row-sharded over its 'data' axis in blocks of that size. The rows
     are cast to the ensemble's dtype first, so a float64 imputer can feed a
     float32 ensemble."""
     if chunk_rows is None:
         chunk_rows = SVCConfig().predict_chunk_rows
     X17 = X17.to(ens.meta.coef.dtype)
+    if mesh is not None:
+        from machine_learning_replications_tpu_torch.parallel.rowwise import apply_rows_sharded
+
+        return apply_rows_sharded(
+            mesh, lambda p, x: stacking.predict_proba1(p, x, device=x.device), ens, X17,
+            chunk_rows=chunk_rows)
     n = int(X17.shape[0])
     if n > chunk_rows:
         return torch.cat([stacking.predict_proba1(ens, X17[s:s + chunk_rows], device=X17.device)
@@ -233,13 +253,13 @@ def _run_array_stage(stages, name: str, compute):
 
 
 def _make_stages(device, checkpoint_dir=None, _interrupt_after=None, fingerprint=None,
-                 timings=None):
-    """The stage runner: checkpointed under ``checkpoint_dir``, or straight
-    through when it is None."""
+                 timings=None, mesh=None):
+    """The stage runner: checkpointed under ``checkpoint_dir`` (shared by
+    ``mesh``'s ranks, rank 0 writing), or straight through when it is None."""
     from machine_learning_replications_tpu_torch.persist.checkpoint import StageCheckpointer
 
     return StageCheckpointer(checkpoint_dir, device=device, _interrupt_after=_interrupt_after,
-                             fingerprint=fingerprint, timings=timings)
+                             fingerprint=fingerprint, timings=timings, mesh=mesh)
 
 
 def _svc_kwargs(cfg: ExperimentConfig) -> dict:
@@ -259,6 +279,7 @@ def fit_stacking(
     cfg: ExperimentConfig = ExperimentConfig(),
     stages=None,
     *,
+    mesh=None,
     device=None,
     svc_iterations: "dict | None" = None,
 ) -> stacking.StackingParams:
@@ -271,8 +292,10 @@ def fit_stacking(
     every row. ``stages`` (a ``StageCheckpointer`` or None) makes each member
     fit and the meta pass a stage. ``svc_iterations`` (a dict), when given,
     receives the dual solves' steps per lane under "member_svc" and
-    "meta_svc_oof"."""
+    "meta_svc_oof". With ``mesh`` the GBDT member and its fold fits train
+    row-sharded (``parallel.fit_gbdt_sharded``)."""
     dev = resolve_device(device)
+    check_device(mesh, dev)
     if stages is None:
         stages = _make_stages(dev)
     Xj = torch.as_tensor(X, device=dev)
@@ -300,6 +323,10 @@ def fit_stacking(
         # protocol there, at the JAX package's row counts.
         X_np = to_host(Xj)
         gcfg = gbdt.scaled_member_cfg(cfg.gbdt, X_np.shape[0], X_np.shape[1])
+        if mesh is not None:
+            from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
+
+            return fit_gbdt_sharded(mesh, X_np, y_np, gcfg)[0]
         return gbdt.fit(X_np, y_np, gcfg, device=dev)[0]
 
     scaler_p, svc_p = stages.run("member_svc", _fit_svc)
@@ -309,7 +336,7 @@ def fit_stacking(
     def _fit_meta():
         # The CV pass checkpoints each member's out-of-fold column itself;
         # this outer stage holds only the meta-LR Newton fit.
-        meta_X = cross_val_member_probas(Xj, y_np, cfg, stages=stages, device=dev,
+        meta_X = cross_val_member_probas(Xj, y_np, cfg, stages=stages, mesh=mesh, device=dev,
                                          svc_iterations=iters)
         return solvers.logreg_l2_fit(meta_X, yj, C=cfg.meta.C, tol=cfg.meta.tol,
                                      max_iter=cfg.meta.max_iter)
@@ -348,6 +375,7 @@ def cross_val_member_probas(
     cfg: ExperimentConfig,
     stages=None,
     *,
+    mesh=None,
     device=None,
     svc_iterations: "dict | None" = None,
 ) -> torch.Tensor:
@@ -359,8 +387,14 @@ def cross_val_member_probas(
     rows' box constraints (``C_i = 0`` ⇒ α_i = 0) after refitting the scaler
     on the fold's rows, the GBDT fold fit parks them at node −1 with zero
     gradient, and the L1-LR fold fit zeroes their loss weight. ``stages``
-    makes each member's out-of-fold column its own stage."""
+    makes each member's out-of-fold column its own stage.
+
+    With ``mesh`` the GBDT fold fits run one after another as weight-masked
+    sharded fits (``parallel.fit_gbdt_sharded``), on the bins ``fit_folds``
+    would use (device quantiles only in the scaled 'hist' regime; each
+    fold's own bins under ``per_fold_binning``)."""
     dev = resolve_device(device)
+    check_device(mesh, dev)
     if stages is None:
         stages = _make_stages(dev)
     Xj = torch.as_tensor(X, device=dev)
@@ -405,9 +439,24 @@ def cross_val_member_probas(
     svc_oof = _run_array_stage(stages, "meta_svc_oof", _svc_oof_fn)
 
     # --- GBDT: mask-parked fold fits, one grower for all k folds ---------
+    def _gbdt_oof_mesh():
+        from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
+
+        X_np = to_host(Xj)
+        if cfg.gbdt.per_fold_binning:
+            bins = [gbdt.fold_bins(X_np, tm, cfg.gbdt) for tm in train_np]
+        else:
+            bins = [gbdt.default_bins(Xj, cfg.gbdt, dev, capped=True)] * k
+        probas = [tree.predict_proba1(fit_gbdt_sharded(
+            mesh, X_np, y_np, cfg.gbdt, bins=bins[j], sample_weight=train_np[j])[0], Xj)
+            for j in range(k)]
+        return torch.sum(torch.stack(probas) * test, dim=0)
+
     def _gbdt_oof():
         from machine_learning_replications_tpu_torch.models.sweep import one_fold
 
+        if mesh is not None:
+            return _gbdt_oof_mesh()
         gp = gbdt.fit_folds(to_host(Xj), y_np, train_np, cfg.gbdt, device=dev)
         p_gbdt = torch.stack([tree.predict_proba1(one_fold(gp, j), Xj) for j in range(k)])
         return torch.sum(p_gbdt * test, dim=0)
@@ -503,6 +552,7 @@ def fit_pipeline(
     checkpoint_dir: str | None = None,
     _interrupt_after: str | None = None,
     *,
+    mesh=None,
     device=None,
 ) -> tuple[PipelineParams, dict[str, Any]]:
     """The full reference program: impute → select → stack → quality profile,
@@ -519,21 +569,29 @@ def fit_pipeline(
     meta_lg_oof → meta → quality_profile), each published durably on
     completion; a run re-entered with the same inputs restores finished
     stages. ``_interrupt_after`` is the test hook that simulates preemption
-    right after a named stage is durable."""
+    right after a named stage is durable. With ``mesh`` every rank passes
+    the same ``checkpoint_dir`` and rank 0 alone writes it.
+
+    ``mesh`` routes the row-parallel stages through the mesh: the imputer's
+    transform, LassoCV's statistics, the GBDT member and its fold fits, and
+    the profile's scoring pass. Every rank of the mesh runs this call on the
+    same inputs and returns the same model."""
     dev = resolve_device(device)
+    check_device(mesh, dev)
     X64 = np.array(to_host(X64), copy=True)
     y = to_host(y)
     timings: dict[str, float] = {}
     iters: dict[str, list] = {}
     stages = _make_stages(
         dev, checkpoint_dir, _interrupt_after,
-        _fit_fingerprint(X64, y, cfg) if checkpoint_dir is not None else None, timings)
+        _fit_fingerprint(X64, y, cfg) if checkpoint_dir is not None else None, timings, mesh)
 
     imp_p, X_imp = stages.run(
-        "impute", lambda: knn_impute.fit_transform(X64, cfg.imputer, cfg.seed, y=y, device=dev))
+        "impute", lambda: knn_impute.fit_transform(X64, cfg.imputer, cfg.seed, y=y, mesh=mesh,
+                                                  device=dev))
 
     def _select():
-        mask, info = feature_selection.fit_select(X_imp, y, cfg.select, device=dev)
+        mask, info = feature_selection.fit_select(X_imp, y, cfg.select, mesh, device=dev)
         # a tuple of tensors and statics; -1 = no subsampling happened
         return (torch.as_tensor(mask, device=dev), torch.as_tensor(info["coef"], device=dev),
                 info["intercept"], info["alpha_"], torch.as_tensor(info["alphas"], device=dev),
@@ -547,14 +605,14 @@ def fit_pipeline(
     if int(sel[6]) >= 0:
         info["subsampled_from_rows"] = int(sel[6])
     X17 = X_imp.index_select(1, torch.as_tensor(np.flatnonzero(mask), device=dev))
-    ens = fit_stacking(X17, y, cfg, stages=stages, device=dev, svc_iterations=iters)
+    ens = fit_stacking(X17, y, cfg, stages=stages, mesh=mesh, device=dev, svc_iterations=iters)
 
     def _quality_profile():
         # The drift baseline: the same post-impute post-select matrix the
         # members trained on, and the fitted ensemble's training scores.
         from machine_learning_replications_tpu_torch.obs import quality
 
-        scores = _ensemble_scores(ens, X17, chunk_rows=cfg.svc.predict_chunk_rows)
+        scores = _ensemble_scores(ens, X17, chunk_rows=cfg.svc.predict_chunk_rows, mesh=mesh)
         prof = quality.build_reference_profile(to_host(X17), scores, y=y)
         return {k: torch.as_tensor(v, device=dev) for k, v in prof.items()}
 
@@ -566,8 +624,8 @@ def fit_pipeline(
 
 
 def _ensemble_scores(ens: stacking.StackingParams, X17: torch.Tensor,
-                     chunk_rows: int | None = None) -> np.ndarray:
+                     chunk_rows: int | None = None, mesh=None) -> np.ndarray:
     """Training scores for the reference profile: the stacked P(class 1)
     over imputed-and-selected rows, through the same bounded scoring tail as
     batch inference."""
-    return to_host(_stacked_proba1_bounded(ens, X17, chunk_rows))
+    return to_host(_stacked_proba1_bounded(ens, X17, chunk_rows, mesh))

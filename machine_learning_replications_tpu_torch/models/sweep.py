@@ -1,6 +1,6 @@
 """5-fold CV hyperparameter sweep over the GBDT grid (``bench.py`` config 4).
 
-Port of the JAX package's ``models/sweep.py`` on a single device. The sweep
+Port of the JAX package's ``models/sweep.py``. The sweep
 exploits the boosting prefix property: a forest trained for M stages
 contains the forest for every m ≤ M, so it fits one model per (max_depth,
 fold) at ``max(n_estimators_grid)`` stages — all folds of a depth in one
@@ -8,8 +8,8 @@ fold) at ``max(n_estimators_grid)`` stages — all folds of a depth in one
 per-tree contribution cumsums over each fold's held-out rows. Fold
 assignment is sklearn's ``StratifiedKFold(k, shuffle=False)``
 (``utils.cv``), so fold AUCs compare with a ``GridSearchCV`` differential.
-
-Not ported: the sharded sweep (``mesh=``, ROADMAP item 7).
+With ``mesh=`` each (depth, fold) fit and the refit run row-sharded through
+``parallel.fit_gbdt_sharded``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from machine_learning_replications_tpu_torch.config import GBDTConfig, SweepConf
 from machine_learning_replications_tpu_torch.device import resolve_device, to_host
 from machine_learning_replications_tpu_torch.models import gbdt, tree
 from machine_learning_replications_tpu_torch.ops import binning
+from machine_learning_replications_tpu_torch.parallel.mesh import check_device
 from machine_learning_replications_tpu_torch.utils.cv import stratified_kfold_test_masks
 from machine_learning_replications_tpu_torch.utils.metrics import roc_auc_batch_host
 
@@ -85,13 +86,21 @@ def cv_sweep(
     protocol the candidate bins are derived once and reused across depths
     (the bin budget is depth-independent); ``base.per_fold_binning`` derives
     per-fold candidates inside each ``fit_folds`` call.
+
+    With ``mesh`` (on ``device``), each (depth, fold) fit runs row-sharded
+    through ``parallel.fit_gbdt_sharded`` (the fold masks ride the
+    trainers' weight path) and each fold's held-out rows are scored
+    row-sharded (``parallel.rowwise``); the mesh path takes the shared-bins
+    protocol only, as in JAX.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "cv_sweep(mesh=...) is not ported yet — the sharded sweep over "
-            "parallel.fit_gbdt_sharded (ROADMAP item 7)"
-        )
     dev = resolve_device(device)
+    check_device(mesh, dev)
+    if mesh is not None:
+        if base.per_fold_binning:
+            raise ValueError(
+                "cv_sweep(mesh=...) runs the shared-bins protocol only; "
+                "per_fold_binning is a single-device option (fit_folds)"
+            )
     X = to_host(X)
     y = to_host(y)
     est_grid = tuple(sweep.n_estimators_grid)
@@ -105,14 +114,18 @@ def cv_sweep(
     if not base.per_fold_binning:
         bins = binning.bin_features(X, gbdt.bin_budget_capped(base))
 
-    params_by_depth = [
-        gbdt.fit_folds(
-            X, y, train_masks,
-            dataclasses.replace(base, n_estimators=m_max, max_depth=depth),
-            bins=bins, device=dev,
-        )
-        for depth in depth_grid
-    ]
+    # Per depth, the k fold fits: one batched fit_folds, or k sharded fits.
+    params_by_depth = []
+    for depth in depth_grid:
+        cfg = dataclasses.replace(base, n_estimators=m_max, max_depth=depth)
+        if mesh is None:
+            params_by_depth.append(gbdt.fit_folds(X, y, train_masks, cfg, bins=bins, device=dev))
+        else:
+            from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
+
+            params_by_depth.append([
+                fit_gbdt_sharded(mesh, X, y, cfg, sample_weight=train_masks[kk], bins=bins)[0]
+                for kk in range(k)])
 
     # Score each fold's HELD-OUT rows only.
     te_idx = [np.flatnonzero(tm > 0.5) for tm in test_masks]
@@ -120,8 +133,17 @@ def cv_sweep(
     fold_auc = np.zeros((len(depth_grid), len(est_grid), k))
     for di, params in enumerate(params_by_depth):
         for kk in range(k):
-            rows = torch.as_tensor(te_idx[kk], device=dev)
-            probs = staged_proba1(one_fold(params, kk), Xd[rows], est_grid)  # [E, n_te]
+            if mesh is None:
+                rows = torch.as_tensor(te_idx[kk], device=dev)
+                probs = staged_proba1(one_fold(params, kk), Xd[rows], est_grid)  # [E, n_te]
+            else:
+                from machine_learning_replications_tpu_torch.parallel.rowwise import (
+                    apply_rows_sharded,
+                )
+
+                probs = apply_rows_sharded(
+                    mesh, lambda p, x: staged_proba1(p, x, est_grid).T, params[kk],
+                    X[te_idx[kk]]).T
             fold_auc[di, :, kk] = roc_auc_batch_host(y[te_idx[kk]], to_host(probs))
 
     mean_auc = fold_auc.mean(axis=-1)
@@ -149,17 +171,21 @@ def refit_best(
     """Refit the winning cell on the full data (``GridSearchCV(refit=True)``)
     through ``gbdt.fit``, every depth and splitter included: a depth-1
     winner under the default 'exact' splitter refits on the stump kernel
-    with every unique-value midpoint as a candidate. ``mesh=`` raises
-    (ROADMAP item 7)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "refit_best(mesh=...) is not ported yet — the sharded refit "
-            "(ROADMAP item 7)"
-        )
+    with every unique-value midpoint as a candidate. With ``mesh`` the refit
+    runs row-sharded (``parallel.fit_gbdt_sharded``): a sweep that needed
+    the mesh does not funnel its refit through one device; the mesh must be
+    on ``device``."""
+    dev = resolve_device(device)
+    check_device(mesh, dev)
     cfg = dataclasses.replace(
         base,
         n_estimators=result.best_n_estimators,
         max_depth=result.best_max_depth,
     )
-    params, _ = gbdt.fit(X, y, cfg, device=device)
+    if mesh is not None:
+        from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
+
+        params, _ = fit_gbdt_sharded(mesh, to_host(X), to_host(y), cfg)
+    else:
+        params, _ = gbdt.fit(X, y, cfg, device=dev)
     return params, cfg

@@ -370,19 +370,36 @@ class StageCheckpointer:
     journaled, the JAX package's stderr lines, " (checkpointed)" when
     durable); a restored stage journals ``checkpoint_restore``, a discarded
     one ``checkpoint_corrupt``. ``_interrupt_after`` is the test hook that
-    raises ``SimulatedInterrupt`` right after the named stage is durable."""
+    raises ``SimulatedInterrupt`` right after the named stage is durable.
+
+    With ``mesh`` (a ``parallel`` mesh whose ranks all run this fit on one
+    ``root``) rank 0 alone writes: the fingerprint and every stage. Each
+    rank reads, and a stage is restored only where every rank loaded it, else
+    every rank recomputes it; rank 0's writes are held to one outcome across
+    the ranks (``parallel.mesh.agree``), so a failed publish raises on every
+    rank instead of leaving the others in the next collective."""
 
     def __init__(self, root: "str | os.PathLike | None", *, device=None,
                  _interrupt_after: str | None = None, fingerprint: str | None = None,
-                 timings: "dict | None" = None) -> None:
+                 timings: "dict | None" = None, mesh=None) -> None:
         self.root = None if root is None else os.path.abspath(os.fspath(root))
         self.device = resolve_device(device)
         self.timings = {} if timings is None else timings
         self._interrupt_after = _interrupt_after
+        self.mesh = mesh
+        self._writer = mesh is None or mesh.rank == 0
         if self.root is not None:
-            os.makedirs(self.root, exist_ok=True)
-            if fingerprint is not None:
-                self._check_fingerprint(fingerprint)
+            def _open():
+                os.makedirs(self.root, exist_ok=True)
+                if fingerprint is not None:
+                    self._check_fingerprint(fingerprint)
+
+            self._agree(_open)
+
+    def _agree(self, fn):
+        from machine_learning_replications_tpu_torch.parallel.mesh import agree
+
+        return agree(self.mesh, fn)
 
     def _check_fingerprint(self, fingerprint: str) -> None:
         fp_path = os.path.join(self.root, FINGERPRINT_FILE)
@@ -408,6 +425,8 @@ class StageCheckpointer:
                 f"checkpoint dir {self.root!r} holds completed stages ({', '.join(stray)}) "
                 "but no fingerprint recording which inputs produced them; pass a fresh "
                 "checkpoint_dir or delete the stale one")
+        if not self._writer:
+            return
         tmp = f"{fp_path}.tmp.{os.getpid()}"
         fsync_json_dump(tmp, {"fingerprint": fingerprint})
         os.replace(tmp, fp_path)
@@ -416,29 +435,41 @@ class StageCheckpointer:
         return self.root is not None and _complete(os.path.join(self.root, name))
 
     def run(self, name: str, compute):
-        """The stage's output: restored if previously completed, else
-        ``compute()`` then published (before the interrupt hook fires)."""
+        """The stage's output: restored if previously completed (on every
+        rank of the mesh), else ``compute()`` then published (before the
+        interrupt hook fires)."""
         from machine_learning_replications_tpu_torch.device import synchronize
         from machine_learning_replications_tpu_torch.utils.trace import stage_say
 
+        path = None if self.root is None else os.path.join(self.root, name)
+        out, corrupt = None, None
         if self.completed(name):
-            path = os.path.join(self.root, name)
             try:
                 out = load_tree(path, device=self.device)
-                stage_say(f"stage {name!r} restored from checkpoint")
-                journal.event("checkpoint_restore", stage=name)
-                return out
             except (CheckpointIntegrityError, OSError, ValueError, KeyError) as exc:
+                corrupt = exc
+        if self.root is not None and self.mesh is not None and self.mesh.groups is not None:
+            from machine_learning_replications_tpu_torch.parallel.mesh import psum
+
+            loaded = torch.tensor([float(out is not None)], device=self.device)
+            if int(psum(loaded, self.mesh, None).item()) < self.mesh.size:
+                out = None  # a rank could not load it: every rank recomputes
+        if out is not None:
+            stage_say(f"stage {name!r} restored from checkpoint")
+            journal.event("checkpoint_restore", stage=name)
+            return out
+        if corrupt is not None:
+            if self._writer:
                 shutil.rmtree(path, ignore_errors=True)
-                stage_say(f"stage {name!r}: checkpoint corrupt ({type(exc).__name__}) — "
-                          "discarded, recomputing")
-                journal.event("checkpoint_corrupt", stage=name, error=type(exc).__name__)
+            stage_say(f"stage {name!r}: checkpoint corrupt ({type(corrupt).__name__}) — "
+                      "discarded, recomputing")
+            journal.event("checkpoint_corrupt", stage=name, error=type(corrupt).__name__)
         with journal.stage_scope(name, done_suffix="" if self.root is None
                                  else " (checkpointed)") as stage:
             out = compute()
             synchronize(self.device)
             if self.root is not None:
-                save_tree(os.path.join(self.root, name), out)
+                self._agree(lambda: save_tree(path, out) if self._writer else None)
         self.timings[name] = stage.seconds
         if self._interrupt_after == name:
             raise SimulatedInterrupt(f"after stage {name!r}")

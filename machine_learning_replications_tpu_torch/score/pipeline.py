@@ -249,8 +249,10 @@ class ChunkScorer:
             raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
         if mesh is not None:
             raise NotImplementedError(
-                "a row-sharded scoring tail (mesh=) is not ported yet: it comes "
-                "with data-parallel training (ROADMAP item 7)"
+                "a row-sharded scoring tail (mesh=) is not ported yet: the reader, "
+                "parse workers and writer live on one rank while rows scatter to "
+                "the others, which needs its own design — the remaining piece of "
+                "ROADMAP item 7"
             )
         self.chunk_rows = int(chunk_rows)
         self.route = route

@@ -1022,3 +1022,94 @@ def test_learn_run_cycle_on_the_card_equals_the_cpu_port(cuda_device, tmp_path):
     # and the card's candidate replayed on the CPU equals it too
     again = shadow.replay_scores(convert.params_to(cand, "cpu"), X17, device="cpu")
     np.testing.assert_allclose(again[0], got[0], rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training (parallel/): a one-rank NCCL world, two gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+_PARALLEL_ROWS = 200_000
+_PARALLEL_RANK = """
+import sys
+import numpy as np, torch
+from machine_learning_replications_tpu_torch.config import GBDTConfig
+from machine_learning_replications_tpu_torch.data import make_cohort, selected_indices
+from machine_learning_replications_tpu_torch.parallel import distributed, fit_gbdt_sharded, make_mesh
+out, rows, depth = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+assert distributed.initialize_distributed()
+mesh = make_mesh(2, 1)
+X, y, _ = make_cohort(n=rows, seed=2020)
+X17 = np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32)
+cfg = GBDTConfig(splitter="hist", n_estimators=30, max_depth=depth)
+params, aux = fit_gbdt_sharded(mesh, X17, y.astype(np.float32), cfg)
+assert params.value.device.type == "cuda"
+np.savez(f"{out}.rank{mesh.rank}.npz", feature=params.feature.cpu().numpy(),
+         value=params.value.cpu().numpy(), deviance=aux["train_deviance"],
+         backend=distributed.BRINGUP["backend"], reason=distributed.BRINGUP["reason"])
+distributed.shutdown()
+"""
+
+
+def _parallel_cohort(rows):
+    X, y, _ = make_cohort(n=rows, seed=2020)
+    return np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32), y.astype(np.float32)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_parallel_one_rank_nccl_fit_equals_the_single_device_fit(cuda_device, depth):
+    """A one-rank NCCL world through ``fit_gbdt_sharded`` launches the same
+    kernel entry once per tree level and fits the single-device forest
+    within the float32 gates (deviance rtol 1e-4, predictions 1e-4)."""
+    from machine_learning_replications_tpu_torch.parallel import (
+        distributed, fit_gbdt_sharded, make_mesh,
+    )
+
+    X17, y = _parallel_cohort(_PARALLEL_ROWS)
+    cfg = GBDTConfig(splitter="hist", n_estimators=30, max_depth=depth)
+    assert distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        assert distributed.BRINGUP["backend"] == "nccl"
+        mesh = make_mesh(1, 1)
+        assert mesh.device == cuda_device
+        counter = "stump_histograms" if depth == 1 else "node_histograms"
+        before = cuda_histogram.LAUNCHES[counter]
+        sharded, aux = fit_gbdt_sharded(mesh, X17, y, cfg)
+        assert cuda_histogram.LAUNCHES[counter] - before == cfg.n_estimators * depth
+    finally:
+        distributed.shutdown()
+    single, single_aux = gbdt.fit(X17, y, cfg, device=cuda_device)
+    np.testing.assert_allclose(aux["train_deviance"],
+                               torch.as_tensor(single_aux["train_deviance"]).cpu().numpy(),
+                               rtol=1e-4)
+    Xd = torch.as_tensor(X17, device=cuda_device)
+    torch.testing.assert_close(tree.predict_proba1(sharded, Xd), tree.predict_proba1(single, Xd),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_parallel_two_gloo_ranks_share_the_card(cuda_device, tmp_path, depth):
+    """Two ranks on one card declare gloo, compute on the card, hold one
+    replicated forest, and fit the one-rank forest within the float32
+    gates."""
+    import subprocess
+    import sys
+
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PARALLEL_RANK, str(tmp_path / "fit"), str(_PARALLEL_ROWS),
+         str(depth)], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r)}) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], logs
+    ranks = [np.load(tmp_path / f"fit.rank{r}.npz") for r in range(2)]
+    assert str(ranks[0]["backend"]) == "gloo" and "share 1 card" in str(ranks[0]["reason"])
+    for k in ("feature", "value", "deviance"):
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k])
+    X17, y = _parallel_cohort(_PARALLEL_ROWS)
+    single, single_aux = gbdt.fit(X17, y, GBDTConfig(splitter="hist", n_estimators=30,
+                                                     max_depth=depth), device=cuda_device)
+    np.testing.assert_allclose(ranks[0]["deviance"],
+                               torch.as_tensor(single_aux["train_deviance"]).cpu().numpy(),
+                               rtol=1e-4)

@@ -333,5 +333,13 @@ def test_cv_sweep_and_refit_match_jax():
                                     device="cpu")
     assert c_got.max_depth == 1 and c_got.splitter == "exact"
     _assert_forest_equal(p_got, p_want)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sweep.cv_sweep(X, y, SweepConfig(**grid), mesh=object(), device="cpu")
+    # the sharded sweep on a one-rank mesh is the same sweep; it refuses
+    # per-fold binning, as JAX's does
+    from machine_learning_replications_tpu_torch.parallel import single_device_mesh
+
+    mesh = single_device_mesh(device="cpu")
+    on_mesh = sweep.cv_sweep(X, y, SweepConfig(**grid), mesh=mesh, device="cpu")
+    np.testing.assert_allclose(on_mesh.fold_auc, got.fold_auc, rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="shared-bins"):
+        sweep.cv_sweep(X, y, SweepConfig(**grid), GBDTConfig(per_fold_binning=True), mesh=mesh,
+                       device="cpu")

@@ -341,9 +341,11 @@ def test_warm_refit_validates_input(live, shifted, tmp_path):
             retrain.warm_refit(params, shifted, out, cfg=cfg, min_rows=100, device="cpu")
     with pytest.raises(TypeError, match="cannot warm-refit"):
         retrain.warm_refit(object(), shifted, out, cfg=cfg, min_rows=100, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        retrain.warm_refit(params, shifted, out, cfg=cfg, min_rows=100, mesh=object(),
-                           device="cpu")
+    from machine_learning_replications_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="mesh's ranks compute on meta"):
+        retrain.warm_refit(params, shifted, out, cfg=cfg, min_rows=100,
+                           mesh=Mesh(1, 1, torch.device("meta")), device="cpu")
     assert not os.path.exists(out)
 
 

@@ -90,6 +90,10 @@ def test_no_forbidden_import_in_port_sources():
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "machine_learning_replications_tpu_torch.ops.cuda_histogram" in mods
+    # the data-parallel sub-package, module for module as in JAX
+    assert {f"machine_learning_replications_tpu_torch.parallel{m}" for m in (
+        "", ".mesh", ".distributed", ".rowwise", ".stump_trainer", ".hist_trainer",
+        ".select_trainer")} <= set(mods)
     probe = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
