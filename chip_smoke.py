@@ -105,24 +105,38 @@ per phase:
            rotation and straight at one replica; card memory); SIGKILL of an
            autoscaled replica under a burst (0 non-200, respawned, back in
            rotation); ``learn run`` on the router's capture with stated
-           gates rolling v2 out under a 16-client burst (promoted, every
-           replica at v2, replies equal to v2's oracles, both kernel entries
+           gates rolling v2 out under a 16-client burst (promoted with its
+           AOT bundle, every replica at v2 restored from it with 0
+           fallbacks, replies equal to v2's oracles, both kernel entries
            launched, per-replica deploy seconds); ``fleet status`` and
            ``learn status`` as strict JSON; SIGTERM to everything (exit 0,
            every replica deregistered, peak card memory per process);
+  aot      AOT executable bundles (``persist/aot.py``) on the fleet's v2, the
+           script's one publish (``learn run``'s promotion, from an empty
+           Inductor cache: export seconds per backend, package bytes): ``cli
+           serve --model`` restores all 7 device and 2 host buckets (every
+           ``serve_aot_fallback_total`` series 0, no capture, every reply on
+           both paths equal to the card's eager oracle at
+           ``parity_tolerance``, to the CPU port at (1e-5, 1e-8) and to ``cli
+           predict``'s line); the same with ``--no-aot`` and with
+           ``--inject persist.aot_restore:corrupt`` (all 9 buckets fall back
+           with ``deserialize_error``, journaled and counted, and capture);
+           each cold start to ``/readyz``; ``engine.predict`` ms and one
+           call's card time per bucket, restored against captured;
   train_pipeline  the reference's ``train`` route: ``fit_pipeline`` (1-NN
            impute, LassoCV top-17, the stacking fit with its 5-fold CV, the
            quality profile) on the CLI's 713 + 713 cohort halves, float64,
            cold and warm with stage seconds (one warm fit under a span
-           tracer: its ``stage:*`` spans against ``stage_seconds``), a
-           profile and the SVC solves' steps, held to the CPU port's fit;
+           tracer: its ``stage:*`` spans against ``stage_seconds``) and the
+           SVC solves' steps, held to the CPU port's fit;
            ``cli train --trace-dir --journal`` then ``cli predict`` in
            subprocesses on the card (the journal: manifest first with the
            card's name, at least 6 ``stage_start``, ``run_done`` last with
            graph captures and the in-process fit's kernel launches; the
            trace: every ``stage:*`` span inside ``train``); and the scaled
-           fit on 50,000 develop rows, float32 (the SVC subsample regime,
-           the exact member at B ≈ n, the fold fits over every row);
+           fit on 50,000 develop rows, float32 (the SVC subsample regime at
+           2,048 rows, the exact member at B ≈ n, the fold fits over every
+           row);
   cli      ``cli sweep --synthetic 50000 --save DIR`` in-process on the
            default grid, (25, 50, 100, 200) x (1, 2, 3) x 5 folds, on the
            imputed develop half of ``make_cohort(100000, missing_rate=0.03)``
@@ -175,11 +189,11 @@ depth 3's last level).
 
 Launch counts are set to 0 just before each of train, train_depth,
 fit_exact, sweep, serve, predict, serve_http, score, learn (its in-process
-``warm_refit``), fleet, cli (its in-process ``cli sweep``), distributed (each
+``warm_refit``), fleet, aot, cli (its in-process ``cli sweep``), distributed (each
 one-rank fit), dryrun (each rank, and ``entry()``'s fit) and
 train_pipeline (its reference-size fit and its scaled fit) and read just
 after; each kernel entry must have launched on that
-path, and none on the predict, serve_http and score paths. The fleet
+path, and none on the predict, serve_http, aot and score paths. The fleet
 phase's launches are those its ``learn run`` subprocess journals in
 ``run_done`` (its replicas journal none, and the script's own process
 launches nothing there); the distributed phase adds those its two
@@ -231,8 +245,16 @@ TPU_KERNELS = {
     "node_histograms": "machine_learning_replications_tpu/ops/pallas_histogram.py:127",
 }
 STATS = ("grad", "hess", "grad2", "count")
-# Develop rows of the scaled fit_pipeline: bench.py config 4's 50,000.
+# Develop rows of the scaled fit_pipeline: bench.py config 4's 50,000; its
+# SVC subsample (the member's and the stacking CV's), cut from the default
+# 8,192 to keep the script inside its time limit (the float32 dual runs its
+# 20,000 steps at either size).
 SCALED_ROWS = 50_000
+SCALED_SVC_ROWS = 2_048
+# The predict phase holds the card's 100,000-row batch to the CPU port on
+# its first rows only (the CPU's imputer over 100,000 rows, twice, cost half
+# the phase).
+PREDICT_CPU_ROWS = 20_000
 # Bulk scoring: the headline cohort (half the JAX package's own score bench
 # size of 1,000,000, to keep the script well inside its time limit on a slow
 # host), the prefix the in-process gates run on, the .mat route's rows, and
@@ -935,11 +957,17 @@ def phase_serve(gbdt_params, X17, seed, dev) -> dict:
         check(p.shape == (rows, 2) and bool(torch.isfinite(p).all()), "finite [n, 2] output")
         check(bool(torch.allclose(p.sum(dim=1), torch.ones(rows), atol=1e-6)), "rows sum to 1")
         err = (p.double() - p_cpu.double()).abs()
+        # Each member's share, so that a disagreement names where it arose.
+        m_err = (stacking.predict_proba1_with_members(params, Xb, device=dev)[1].cpu().double()
+                 - stacking.predict_proba1_with_members(params_cpu, Xb, device="cpu")[1].double()
+                 ).abs().amax(dim=0).tolist()
         ok = bool((err <= 1e-8 + 1e-5 * p_cpu.double().abs()).all())
-        check(ok, f"GPU equals CPU at (1e-5, 1e-8) for {rows} rows: max abs err {err.max()}")
+        check(ok, f"GPU equals CPU at (1e-5, 1e-8) for {rows} rows: max abs err {err.max()} "
+                  f"(members svc, gbc, lg: {m_err})")
         out["batches"].append({"rows": rows, "latency_ms_median": statistics.median(lat[3:]) * 1e3,
                                "latency_ms_runs": [t * 1e3 for t in lat[3:]],
                                "max_abs_err_vs_cpu": err.max().item(),
+                               "member_max_abs_err_vs_cpu": m_err,
                                "p1_mean": float(p[:, 1].mean())})
     out["launches"] = dict(cuda_histogram.LAUNCHES)
     emit(out)
@@ -977,8 +1005,9 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     the example patient in a subprocess on the card against the CPU port's
     line, ``pipeline_predict_proba1_contract`` on ``[1, 17]`` and
     ``[100000, 17]`` contract rows on the card against the CPU port at
-    (1e-5, 1e-8), and the imputer's donors card vs CPU (equal, or tied
-    within 1e-12 relative). No hand kernel lies on this path: the launch
+    (1e-5, 1e-8) (the large batch on its first ``PREDICT_CPU_ROWS``), and the
+    imputer's donors card vs CPU on the same rows (equal, or tied within
+    1e-12 relative). No hand kernel lies on this path: the launch
     counts must stay 0."""
     import tempfile
 
@@ -1018,18 +1047,20 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
             p = pipeline.pipeline_predict_proba1_contract(params, Xc, device=dev)
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
+        held = min(rows, PREDICT_CPU_ROWS)
         t0 = time.perf_counter()
-        p_cpu = pipeline.pipeline_predict_proba1_contract(params_cpu, Xc, device="cpu").double()
+        p_cpu = pipeline.pipeline_predict_proba1_contract(params_cpu, Xc[:held],
+                                                          device="cpu").double()
         cpu_s = time.perf_counter() - t0
         p = p.cpu().double()
         check(p.shape == (rows,) and bool(torch.isfinite(p).all()), "finite [n] probabilities")
-        err = (p - p_cpu).abs()
+        err = (p[:held] - p_cpu).abs()
         check(bool((err <= 1e-8 + 1e-5 * p_cpu.abs()).all()),
-              f"card equals CPU at (1e-5, 1e-8) for {rows} rows: max abs err {err.max()}")
+              f"card equals CPU at (1e-5, 1e-8) for {held} rows: max abs err {err.max()}")
         # The donors: equal, or equally near under the CPU's distances.
-        x64 = pipeline.contract_rows_to_x64(params, Xc)
+        x64 = pipeline.contract_rows_to_x64(params, Xc[:held])
         differ, worst = 0, 0.0
-        for s0 in range(0, rows, 8192):
+        for s0 in range(0, held, 8192):
             xq = torch.as_tensor(x64[s0:s0 + 8192])
             idx, ok = block.donors(params.imputer, xq.to(dev))
             idx_c, ok_c = block.donors(params_cpu.imputer, xq)
@@ -1046,7 +1077,8 @@ def phase_predict(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
                 differ += int(bad.any(dim=1).sum())
         out["batches"].append({"rows": rows, "latency_ms_median": statistics.median(lat[2:]) * 1e3,
                                "latency_ms_runs": [t * 1e3 for t in lat[2:]],
-                               "cpu_port_s": cpu_s, "max_abs_err_vs_cpu": err.max().item(),
+                               "cpu_port_s": cpu_s, "cpu_held_rows": held,
+                               "max_abs_err_vs_cpu": err.max().item(),
                                "rows_with_other_donor": differ, "donor_tie_rel_gap": worst,
                                "p1_mean": float(p.mean())})
     out["launches"] = dict(cuda_histogram.LAUNCHES)
@@ -1416,6 +1448,226 @@ def phase_serve_http(gbdt_params, X17: np.ndarray, seed: int, dev) -> dict:
     check(not any(out["launches"].values()), f"no hand kernel on the serve path: {out['launches']}")
     emit(out)
     return out["launches"], ready_s
+
+
+def scrape(port: int) -> dict:
+    """``{series: value}`` of a server's ``/metrics`` page."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        page = resp.read().decode()
+    out = {}
+    for line in page.splitlines():
+        if line and not line.startswith("#"):
+            series, _, value = line.rpartition(" ")
+            out[series] = float(value)
+    return out
+
+
+def restored_ms(eng, b: int, reps: int = 20) -> float:
+    """Median card time of one call of bucket ``b``'s restored program, by
+    CUDA events on the engine's stream (its copies and the host excluded):
+    ``replay_ms``'s counterpart for an AOT-restored bucket."""
+    from machine_learning_replications_tpu_torch.data.examples import patient_row
+
+    fn = eng._aot_execs[b]
+    X = torch.as_tensor(np.repeat(eng._host_rows(patient_row()), b, axis=0),
+                        device=eng.device).to(eng._in_dtype)
+    times = []
+    for i in range(reps + 3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with eng._lock, torch.cuda.stream(eng._stream):
+            start.record()
+            fn(X)
+            end.record()
+        end.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_aot(model: str, publish: dict, seed: int, dev) -> dict:
+    """AOT executable bundles (``persist/aot.py``) on the fleet phase's v2:
+    the full-pipeline model that ``learn run``'s promotion published with
+    its bundle (``publish``: the export seconds per backend from its
+    journal's ``aot_export``, from an empty Inductor cache, and its refit's
+    launches; one export per run, to stay inside the time limit). Here: the
+    package bytes and fingerprints; ``cli serve --model`` to ``/readyz`` 200
+    restoring all 7 device and 2 host buckets (every
+    ``serve_aot_fallback_total`` series 0, no graph captured, every reply on
+    either path equal to the eager oracle on the card at ``parity_tolerance``
+    and to the CPU port at (1e-5, 1e-8), the example patient's text equal to
+    ``cli predict --model``'s line); the same with ``--no-aot`` (7
+    captures) and with ``--inject persist.aot_restore:corrupt`` (all 9
+    buckets fall back with ``deserialize_error``, journaled and counted, the
+    7 device buckets captured, the replies still right); each cold start to
+    ``/readyz``; in this process, ``engine.predict`` ms per bucket and one
+    call's card time (CUDA events) restored against captured. No hand kernel
+    runs here."""
+    import signal
+    import tempfile
+
+    from machine_learning_replications_tpu_torch.data.examples import EXAMPLE_PATIENT, patient_row
+    from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
+    from machine_learning_replications_tpu_torch.persist import aot, checkpoint
+    from machine_learning_replications_tpu_torch.serve import engine
+    from machine_learning_replications_tpu_torch.serve.hostpath import DEFAULT_HOST_BUCKETS
+
+    cuda_histogram.reset_launch_counts()
+    device_b, host_b = list(engine.DEFAULT_BUCKETS), list(DEFAULT_HOST_BUCKETS)
+    out = {"phase": "aot", "model": "the fleet phase's v2 (learn run's refit of the predict "
+           "cell's pipeline)", "device_buckets": device_b, "host_buckets": host_b}
+    root = Path(__file__).resolve().parent
+    scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        def journal(path: str) -> list:
+            with open(path) as f:
+                return [json.loads(line) for line in f]
+
+        bundle = aot.load_bundle(model)
+        check(bundle is not None, "the checkpoint ships an aot bundle")
+        blobs = bundle.manifest["blobs"]
+        cover = {be: sorted(b["bucket"] for b in blobs if b["backend"] == be)
+                 for be in ("cuda", "cpu")}
+        check(cover == {"cuda": device_b, "cpu": host_b}, f"the bundle's buckets: {cover}")
+        checkpoint.verify_checkpoint(model, deep=True)
+        out["publish"] = {
+            **publish, "package_bytes": {b["file"]: b["bytes"] for b in blobs},
+            "fingerprints": {be: {k: v for k, v in fp.items() if k != "structure"}
+                             for be, fp in bundle.manifest["fingerprints"].items()}}
+
+        params = checkpoint.load_model(model, device=dev)
+        X, _, _ = make_cohort(n=32, seed=seed + 12, missing_rate=0.0)
+        rows = np.ascontiguousarray(X[:, selected_indices()], np.float64)
+        rows[0] = patient_row()[0]
+        patients = [dict(zip(SELECTED_17, map(float, r))) for r in rows]
+        check(list(EXAMPLE_PATIENT) == list(SELECTED_17) and patients[0] == {
+            k: float(v) for k, v in EXAMPLE_PATIENT.items()}, "row 0 is the example patient")
+        want = engine.oracle_proba1(params, rows)
+        want_cpu = engine.oracle_proba1(convert.params_to(params, "cpu"), rows)
+        tol = engine.parity_tolerance(params)
+        predict_line = run_cli(["predict", "--model", model], timeout=300)[0]
+        predict_line = predict_line.stdout.strip().splitlines()[-1]
+
+        def drive(name: str, *extra) -> dict:
+            """One ``cli serve`` cold start: ready seconds, replies on both
+            paths held to the oracles, ``/metrics``, the journal, SIGTERM."""
+            port = free_port()
+            log = open(f"{tmp}/{name}.log", "w")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "machine_learning_replications_tpu_torch", "serve",
+                 "--model", model, "--port", str(port), "--journal", f"{tmp}/{name}.jsonl",
+                 *extra], stdout=log, stderr=subprocess.STDOUT, text=True,
+                env={**os.environ, "MLR_TPU_PROGRESS": "0"}, cwd=root)
+            try:
+                while True:
+                    check(proc.poll() is None, f"cli serve ({name}) exited early: "
+                                               f"{Path(f'{tmp}/{name}.log').read_text()[-2000:]}")
+                    check(time.perf_counter() - t0 < 600, f"cli serve ({name}) ready within 600 s")
+                    try:
+                        cl = Client(port)
+                        st, _, _, _ = cl.call("GET", "/readyz")
+                        cl.close()
+                        if st == 200:
+                            break
+                    except OSError:
+                        pass
+                    time.sleep(0.1)
+                ready_s = time.perf_counter() - t0
+                cl = Client(port)
+                got = {}
+                for path, hdr in (("device", {"X-Serve-Path": "device"}), ("host", None)):
+                    probs = []
+                    for patient in patients:
+                        st, body, hdrs, _ = cl.call("POST", "/predict", patient, hdr)
+                        check(st == 200, f"{name} /predict: {st} {body}")
+                        probs.append(body["probability"])
+                        if patient is patients[0]:
+                            check(body["text"] == predict_line,
+                                  f"{name}: {body['text']!r} vs cli predict {predict_line!r}")
+                    got[path] = np.asarray(probs)
+                    np.testing.assert_allclose(got[path], want, rtol=tol[0], atol=tol[1],
+                                               err_msg=f"{name} {path} vs the card's oracle")
+                    np.testing.assert_allclose(got[path], want_cpu, rtol=1e-5, atol=1e-8,
+                                               err_msg=f"{name} {path} vs the CPU port")
+                cl.close()
+                metrics = scrape(port)
+            finally:
+                proc.send_signal(signal.SIGTERM)
+                proc.wait(timeout=120)
+                log.close()
+            check(proc.returncode == 0, f"cli serve ({name}) exits 0 on SIGTERM")
+            events = journal(f"{tmp}/{name}.jsonl")
+            fallback = {k[len('serve_aot_fallback_total{reason="'):-2]: v
+                        for k, v in metrics.items() if k.startswith("serve_aot_fallback_total{")}
+            check(len(fallback) == 8, f"eight fallback reasons on /metrics: {fallback}")
+            return {
+                "ready_s": ready_s,
+                "restored": sorted((e["role"], e["bucket"]) for e in events
+                                   if e["kind"] == "aot_restore"),
+                "fallbacks": sorted((e["role"], e["bucket"], e["reason"]) for e in events
+                                    if e["kind"] == "aot_fallback"),
+                "fallback_total": fallback,
+                # an unlabeled counter renders no sample until it first counts
+                "captures": metrics.get("torch_graph_captures_total", 0.0),
+                "max_abs_err_vs_oracle": float(max(np.abs(g - want).max() for g in got.values())),
+                "restore_s": {k: v for k, v in metrics.items()
+                              if k.startswith("serve_aot_restore_seconds{")},
+            }
+
+        every = sorted([("device", b) for b in device_b] + [("host", b) for b in host_b])
+        # -- restore ----------------------------------------------------------
+        restored = drive("aot")
+        check(restored["restored"] == every, f"all 9 buckets restored: {restored['restored']}")
+        check(not restored["fallbacks"] and not any(restored["fallback_total"].values()),
+              f"no fallback: {restored['fallbacks']} {restored['fallback_total']}")
+        check(restored["captures"] == 0, f"no graph captured: {restored['captures']}")
+        # -- compare: the same without the bundle -----------------------------
+        captured = drive("no_aot", "--no-aot")
+        check(not captured["restored"] and not captured["fallbacks"],
+              "--no-aot restores nothing and falls back nowhere")
+        check(captured["captures"] == len(device_b), f"--no-aot captures: {captured['captures']}")
+        # -- corrupt: every bucket falls back, and still answers --------------
+        torn = drive("corrupt", "--inject", "persist.aot_restore:corrupt")
+        check(not torn["restored"] and torn["fallbacks"] == [
+            (role, b, "deserialize_error") for role, b in every],
+              f"every bucket fell back with deserialize_error: {torn['fallbacks']}")
+        check(torn["fallback_total"]["deserialize_error"] == len(every) and sum(
+            torn["fallback_total"].values()) == len(every), f"counted: {torn['fallback_total']}")
+        check(torn["captures"] == len(device_b), f"the torn run captured: {torn['captures']}")
+        out.update(restore=restored, no_aot=captured, corrupt=torn)
+
+        # -- in this process: predict per bucket, card time per call ---------
+        eng = engine.BucketedPredictEngine(params, device=dev, aot=bundle.for_backend("cuda"))
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_aot = time.perf_counter() - t0
+        check(sorted(eng._aot_execs) == device_b and eng.compile_count() == 0,
+              f"in-process restore: {sorted(eng._aot_execs)} {eng.trace_counts}")
+        cap = engine.BucketedPredictEngine(params, device=dev)
+        t0 = time.perf_counter()
+        cap.warmup()
+        warm_cap = time.perf_counter() - t0
+        big = np.repeat(rows, 16, axis=0)
+        np.testing.assert_allclose(eng.predict(big), engine.oracle_proba1(params, big),
+                                   rtol=tol[0], atol=tol[1])
+        per_bucket = {}
+        for b in device_b:
+            Xb = big[:b]
+            per_bucket[b] = {
+                "predict_ms_restored": median_ms(lambda: eng.predict(Xb))[0],
+                "predict_ms_captured": median_ms(lambda: cap.predict(Xb))[0],
+                "card_ms_restored": restored_ms(eng, b),
+                "card_ms_captured": replay_ms(cap, b)}
+        out.update(engine_warmup_s={"restored": warm_aot, "captured": warm_cap},
+                   per_bucket=per_bucket, cli_predict_line=predict_line)
+    out["launches"] = dict(cuda_histogram.LAUNCHES)
+    check(not any(out["launches"].values()), f"no hand kernel on the restore path: "
+                                             f"{out['launches']}")
+    emit(out)
+    return out["launches"]
 
 
 def write_cohort_jsonl(path: str, X17: np.ndarray, bad_before: list) -> np.ndarray:
@@ -1892,7 +2144,8 @@ def burst_stats(res: dict) -> dict:
             "by_replica": by}
 
 
-def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) -> dict:
+def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, keep_dir: str,
+                dev) -> tuple:
     """The fleet on the card, every process a subprocess of the port's CLI:
     ``fleet router --capture`` (it must hold no CUDA context); ``fleet
     autoscale --min 2 --max 3`` spawning two replicas on the card; a
@@ -1902,17 +2155,21 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) ->
     and two replicas in rotation, and straight at one replica; SIGKILL of an
     autoscaled replica during a burst (0 non-200; respawned, back in
     rotation); ``learn run`` retraining on the router's capture and rolling
-    v2 out through it under a 16-client burst (promoted, every replica at
-    v2, both kernel entries launched, read from its journal); ``fleet
-    status`` and ``learn status`` as strict JSON; SIGTERM to everything
-    (exit 0, every replica deregistered). Returns the ``learn run``
-    subprocess's kernel launches: no other process of the fleet launches a
-    hand kernel."""
+    v2 out through it under a 16-client burst (promoted with its AOT bundle,
+    compiled from an empty Inductor cache; every replica at v2, restored
+    from the bundle with 0 fallbacks; both kernel entries launched, read
+    from its journal); ``fleet status`` and ``learn status`` as strict JSON;
+    SIGTERM to everything (exit 0, every replica deregistered). v2's
+    checkpoint is copied to ``keep_dir`` for the aot phase. Returns the ``learn
+    run`` subprocess's kernel launches (no other process of the fleet
+    launches a hand kernel) and its publish's record."""
+    import shutil
     import signal
     import tempfile
 
     from machine_learning_replications_tpu_torch.data.schema import SELECTED_17
     from machine_learning_replications_tpu_torch.fleet.lifecycle import RouterClient
+    from machine_learning_replications_tpu_torch.persist import aot as aot_mod
     from machine_learning_replications_tpu_torch.persist import checkpoint
     from machine_learning_replications_tpu_torch.serve import engine
 
@@ -1939,11 +2196,12 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) ->
         model, cap = f"{tmp}/live", f"{tmp}/capture"
         check(checkpoint.save_model(model, v1) == 1, "the live checkpoint is version 1")
 
-        def spawn(name: str, argv: list):
+        def spawn(name: str, argv: list, extra_env=None):
             log = open(f"{tmp}/{name}.log", "w")
             procs[name] = (subprocess.Popen(
                 [sys.executable, "-m", "machine_learning_replications_tpu_torch", *argv],
-                stdout=log, stderr=subprocess.STDOUT, text=True, env=env, cwd=root), log)
+                stdout=log, stderr=subprocess.STDOUT, text=True, env={**env, **(extra_env or {})},
+                cwd=root), log)
             return procs[name][0]
 
         def tail(name: str) -> str:
@@ -2117,7 +2375,9 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) ->
 
             def learn_run():
                 t0 = time.perf_counter()
-                proc = spawn("learn", learn_argv)
+                # an empty Inductor cache: the compile a first publish pays
+                proc = spawn("learn", learn_argv,
+                             {"TORCHINDUCTOR_CACHE_DIR": f"{tmp}/inductor"})
                 proc.wait(timeout=900)
                 return {"rc": proc.returncode, "seconds": time.perf_counter() - t0}
 
@@ -2151,6 +2411,27 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) ->
             launches = {k: done["torch_kernel_launches_total"].get(k, 0)
                         for k in ("stump_histograms", "node_histograms")}
             check(all(launches.values()), f"learn run launched both kernel entries: {launches}")
+            # promotion published v2 with its bundle: every replica's deploy
+            # restored all 7 device and 2 host buckets from it, 0 fallbacks
+            check(aot_mod.load_bundle(model) is not None, "v2 ships an aot bundle")
+            restored = {}
+            for rid in sorted(spawned):
+                recs = journal(f"{tmp}/replicas/replica_{rid}.jsonl")
+                start = max(i for i, e in enumerate(recs) if e["kind"] == "deploy_start")
+                after = recs[start:]
+                restored[rid] = sorted((e["role"], e["bucket"]) for e in after
+                                       if e["kind"] == "aot_restore")
+                check(not any(e["kind"] == "aot_fallback" for e in recs),
+                      f"{rid}: no aot fallback")
+                check(len(restored[rid]) == len(engine.DEFAULT_BUCKETS) + 2,
+                      f"{rid}'s deploy restored every bucket: {restored[rid]}")
+            # v2 and its bundle outlive the phase: the aot phase serves them
+            shutil.copytree(model, f"{keep_dir}/model")
+            export = next(e for e in ljournal if e["kind"] == "aot_export")
+            publish = {"by": "learn run's promotion", "learn_run_s": res["during"]["seconds"],
+                       "export_s": export["seconds"],
+                       "export_backend_s": export["backend_seconds"],
+                       "refit_launches": launches}
             rjournal = journal(f"{tmp}/router.jsonl")
             steps = next(e for e in rjournal if e["kind"] == "fleet_deploy_done")
             out["learn"] = {
@@ -2163,6 +2444,7 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) ->
                 "deploy_replica_s": {e["replica"]: e.get("seconds") for e in rjournal
                                      if e["kind"] == "fleet_deploy_replica"},
                 "burst_versions": versions, **burst_stats(res), "launches": launches,
+                "deploy_restored": restored, "publish": publish,
                 "retrain": {k: next(e for e in ljournal if e["kind"] == "learn_retrain_done"
                                     ).get(k) for k in ("rows", "seconds", "version")}}
 
@@ -2211,7 +2493,7 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, dev) ->
     out["launches"] = {k: launches.get(k, 0) for k in cuda_histogram.LAUNCHES}
     check(not any(cuda_histogram.LAUNCHES.values()), "the script's process launched nothing here")
     emit(out)
-    return out["launches"]
+    return out["launches"], publish
 
 
 def fold_fit_inputs(rows: int, seed: int, dtype: torch.dtype, dev: torch.device):
@@ -2295,13 +2577,13 @@ def phase_train_kernels(peaks: dict, seed: int, dev: torch.device) -> dict:
     return {"stump_histograms": [stump], "node_histograms": nodes}
 
 
-def run_cli(argv: list, timeout: int = 600, ok: tuple = (0,)) -> tuple:
+def run_cli(argv: list, timeout: int = 600, ok: tuple = (0,), env=None) -> tuple:
     """``python -m machine_learning_replications_tpu_torch *argv`` in a
     fresh process on the card from the checkout's root: ``(completed
     process, wall seconds)``; an exit code outside ``ok`` fails the script."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "machine_learning_replications_tpu_torch", *argv],
-                          capture_output=True, text=True, timeout=timeout,
+                          capture_output=True, text=True, timeout=timeout, env=env,
                           cwd=Path(__file__).resolve().parent)
     seconds = time.perf_counter() - t0
     check(proc.returncode in ok, f"cli {argv[0]} on the card: {proc.stderr[-2000:]}")
@@ -2853,8 +3135,8 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
     LassoCV top-17 → stacking fit with 5-fold CV → quality profile) on the
     CLI's cohort halves (``make_cohort(1426, missing_rate=0.03)``: 713
     develop rows, 713 select rows, all 64 variables, ``ExperimentConfig()``,
-    float64) on the card, cold then one traced warm fit with stage seconds, a
-    profile of one warm fit and the SVC solves' steps; held to the same fit
+    float64) on the card, cold then one traced warm fit with stage seconds and
+    the SVC solves' steps; held to the same fit
     by the CPU port (masks, donors, forests but for a tie, every member and
     the meta-LR within 1e-6 relative, select-half p1 within 1e-6, AUC within
     0.005); ``cli train --trace-dir --journal`` then ``cli predict`` in
@@ -2900,7 +3182,6 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
     check(set(stage_spans) == set(stage_secs), f"a span per stage: {stage_spans} {stage_secs}")
     span_gap = max(abs(stage_spans[k] - stage_secs[k]) for k in stage_secs)
     check(span_gap <= 1e-3, f"stage spans within 1e-3 s of stage_seconds: {span_gap}")
-    prof = profile_call(lambda: fit_pipeline_timed(Xd, yd, cfg, dev)[2])
     t0 = time.perf_counter()
     cpu, cpu_info = pipeline.fit_pipeline(Xd, yd, cfg, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -2930,7 +3211,7 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
                warm_runs_s=[w[2] for w in warm], stage_seconds_cold=info["stage_seconds"],
                stage_seconds_warm=[w[1]["stage_seconds"] for w in warm],
                traced_warm_stage_spans_s=stage_spans, traced_stage_span_max_gap_s=span_gap,
-               svc_solves=svc_solves(info), profile_warm_fit=prof, cpu_port_s=cpu_s,
+               svc_solves=svc_solves(info), cpu_port_s=cpu_s,
                cpu_stage_seconds=cpu_info["stage_seconds"], member_rel_err=errs,
                p1_max_abs_err=p1_err, auc=auc, auc_cpu=auc_cpu, auc_line=auc_line,
                n_selected=info["n_selected"], alpha_=info["selection"]["alpha_"], **agree)
@@ -2969,6 +3250,7 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
     X32 = np.ascontiguousarray(X, dtype=np.float32)
     del X
     Xd, yd, Xs, ys = X32[:scaled_rows], y[:scaled_rows], X32[scaled_rows:], y[scaled_rows:]
+    cfg = dataclasses.replace(cfg, svc=dataclasses.replace(cfg.svc, max_rows=SCALED_SVC_ROWS))
     cuda_histogram.reset_launch_counts()
     big, big_info, big_s = fit_pipeline_timed(Xd, yd, cfg, dev)
     big_launches = dict(cuda_histogram.LAUNCHES)
@@ -2997,6 +3279,8 @@ def phase_train_pipeline(seed: int, scaled_rows: int, dev) -> dict:
 
 
 def main(argv=None) -> int:
+    import tempfile
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000, help="cohort rows for the fits")
     ap.add_argument("--sweep-rows", type=int, default=50_000,
@@ -3051,7 +3335,13 @@ def main(argv=None) -> int:
     runs.append(serve_launches)
     runs.append(timed("score", phase_score, gbdt_params, X17, args.seed, dev))
     runs.append(timed("learn", phase_learn, gbdt_params, X17, args.seed, dev))
-    runs.append(timed("fleet", phase_fleet, gbdt_params, X17, args.seed, ready_s, dev))
+    scratch = cuda_histogram.BUILD_DIR.parent     # git-ignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as keep:
+        fleet_launches, publish = timed("fleet", phase_fleet, gbdt_params, X17, args.seed,
+                                        ready_s, keep, dev)
+        runs.append(fleet_launches)
+        runs.append(timed("aot", phase_aot, f"{keep}/model", publish, args.seed, dev))
     cli_launches, cli_grid = timed("cli", phase_cli, args.sweep_rows, args.seed, dev)
     runs.append(cli_launches)
     runs.append(timed("distributed", phase_distributed, X17, yf, args.seed, cli_grid, dev))

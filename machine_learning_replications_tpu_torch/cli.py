@@ -70,8 +70,10 @@ path on the CPU, supervised, drained on SIGTERM. Like ``predict`` it needs
 ``--model`` or ``--pkl``. ``--workers N`` runs N ``SO_REUSEPORT`` workers on
 one port, each a fresh interpreter with its own CUDA context (the parent
 never touches the card); ``--register`` announces the replica to a fleet
-router and deregisters it on SIGTERM; ``--no-aot`` is accepted and
-journaled (the port publishes no executable bundle).
+router and deregisters it on SIGTERM. A checkpoint published with
+``train --aot`` or ``import-sklearn --aot`` ships an AOT executable bundle
+(``persist/aot.py``): ``serve`` restores every bucket from it instead of
+capturing, unless ``--no-aot``.
 
 ``fleet router|deploy|autoscale|status`` are the JAX CLI's fleet tier: a
 front-door router over registered replicas (retries, hedging, shedding,
@@ -345,8 +347,9 @@ def _run_train(args, cfg, dev: torch.device, mesh=None) -> int:
     if args.save:
         from machine_learning_replications_tpu_torch.persist import checkpoint
 
-        checkpoint.save_model(args.save, params)
-        print(f"model checkpointed to {args.save}", file=sys.stderr)
+        checkpoint.save_model(args.save, params, aot=args.aot)
+        print(f"model checkpointed to {args.save}"
+              f"{' (with AOT executable bundle)' if args.aot else ''}", file=sys.stderr)
     return 0
 
 
@@ -612,16 +615,22 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
     # The checkpoint's monotonic version rides every reply as
     # X-Model-Version, from the directory that ACTUALLY loaded (a corrupt
     # primary rolls back to its last-known-good); a pickle is unversioned.
-    # The port publishes no AOT executable bundle (--no-aot is accepted and
-    # journaled): every checkpoint is served by capturing its graphs, as
-    # the JAX replicas serve a checkpoint without a bundle.
+    # The AOT bundle comes from that same directory, so a rollback restores
+    # the last-known-good's packages, never the corrupt target's.
     model_version = None
+    aot_bundle = None
     try:
         if args.model:
             from machine_learning_replications_tpu_torch.persist import checkpoint
 
             params, info = checkpoint.load_model_versioned(args.model, device=dev)
             model_version = info["version"]
+            if not args.no_aot:
+                # Published packages: warmup restores instead of capturing.
+                # A checkpoint without a bundle serves exactly as before.
+                from machine_learning_replications_tpu_torch.persist import aot
+
+                aot_bundle = aot.load_bundle(info["path"])
         else:
             params = load_inference_params(pkl=args.pkl, device=dev)
     except FileNotFoundError as exc:
@@ -678,6 +687,8 @@ def _run_serve(args, buckets, dev: torch.device) -> int:
         incident_dir=args.incident_dir,
         incident_min_interval_s=args.incident_min_interval,
         incident_retention=args.incident_retention,
+        aot_bundle=aot_bundle,
+        use_aot=not args.no_aot,
         device=dev,
     )
     # The warm startup heap (torch, the parameters, the captured graphs)
@@ -830,8 +841,9 @@ def cmd_import_sklearn(args) -> int:
         params = load_inference_params(pkl=args.pkl, device=dev)
     except FileNotFoundError as exc:
         raise SystemExit(f"import-sklearn: {exc}")
-    checkpoint.save_model(args.out, params)
-    print(f"imported {args.pkl} -> {args.out}")
+    checkpoint.save_model(args.out, params, aot=args.aot)
+    print(f"imported {args.pkl} -> {args.out}"
+          + (" (with AOT executable bundle)" if args.aot else ""))
     return 0
 
 
@@ -1397,9 +1409,9 @@ def cmd_learn(args) -> int:
     """Continual learning: drift-triggered retraining, shadow evaluation
     and guarded promotion — the `cli learn ROLE` entry points, as the JAX
     CLI's. ``status`` imports no torch (it only asks the router and its
-    replicas); ``promote`` republishes a checkpoint on the CPU and drives
-    the router; ``run``, ``retrain`` and ``shadow`` fit and replay on
-    ``--device``."""
+    replicas); ``promote`` republishes a checkpoint (with its AOT bundle,
+    compiled on ``--device``, unless ``--no-aot``) and drives the router;
+    ``run``, ``retrain`` and ``shadow`` fit and replay on ``--device``."""
     if args.role == "status":
         return _run_learn_status(args)
     dev = None if args.role == "promote" else _device(args, f"learn {args.role}")
@@ -1519,9 +1531,12 @@ def _run_learn_promote(args) -> int:
         )
     with open(args.verdict) as f:
         verdict = json.load(f)
+    # The bundle is compiled where the replicas serve; a plain republish
+    # needs no card.
+    dev = None if args.no_aot else _device(args, "learn promote")
     result = promod.promote(
         candidate_dir, args.model, args.router, verdict,
-        deploy_timeout_s=args.timeout, aot=not args.no_aot,
+        deploy_timeout_s=args.timeout, aot=not args.no_aot, device=dev,
     )
     print(json.dumps(result, indent=1))
     return 0 if result["result"] == "promoted" else 1
@@ -1610,6 +1625,10 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("train", help="fit the full pipeline and evaluate it")
     add_cohort_flags(t)
     t.add_argument("--save", help="port checkpoint directory to write")
+    t.add_argument("--aot", action="store_true",
+                   help="export the AOT executable bundle into --save (persist/aot.py): "
+                   "pays the serving ladder's compile bill once at publish so every "
+                   "replica restores executables instead of tracing at warmup")
     t.add_argument("--plots", help="directory for roc.png / pr.png")
     t.add_argument("--resume-dir", default=None,
                    help="stage-checkpoint directory: each pipeline stage is published on "
@@ -1643,6 +1662,10 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--pkl", help="pickle path (no default; the reference's "
                    "hf_predict_model.pkl lies outside the checkout)")
     i.add_argument("--out", required=True, help="port checkpoint directory")
+    i.add_argument("--aot", action="store_true",
+                   help="also export the AOT executable bundle into the checkpoint "
+                   "(persist/aot.py): replicas serving it restore per-bucket "
+                   "executables instead of compiling at warmup")
     add_device_flag(i)
     i.set_defaults(fn=cmd_import_sklearn)
 
@@ -1882,8 +1905,8 @@ def add_fleet_parser(sub, add_alerting_flags) -> None:
     )
     fa.add_argument(
         "--no-aot", action="store_true",
-        help="spawn every replica with `serve --no-aot` (accepted for the "
-        "JAX CLI's flag: port replicas capture their graphs either way)",
+        help="spawn every replica with `serve --no-aot`: ignore published AOT "
+        "bundles and capture every bucket at warmup",
     )
     fa.add_argument(
         "--replica-journal-dir", default=None,
@@ -2104,14 +2127,15 @@ def add_learn_parser(sub, add_obs_flags, add_device_flag) -> None:
     )
     lp.add_argument(
         "--no-aot", action="store_true",
-        help="accepted for the JAX CLI's flag: the port publishes no AOT "
-        "executable bundle with or without it",
+        help="publish the candidate without an AOT executable bundle (the "
+        "rolling deploy's replicas then capture every bucket at warmup)",
     )
     lp.add_argument(
         "--timeout", type=float, default=1800.0,
         help="end-to-end rollout timeout (seconds)",
     )
-    add_obs_flags(lp)  # no --device: promote republishes on the CPU
+    add_obs_flags(lp)
+    add_device_flag(lp)  # where the AOT bundle is compiled
     lp.set_defaults(fn=cmd_learn)
 
     ls = lsub.add_parser(
@@ -2333,9 +2357,9 @@ def add_serve_flags(v) -> None:
     v.add_argument("--host-workers", type=int, default=1,
                    help="host fast-path worker threads")
     v.add_argument("--no-aot", action="store_true",
-                   help="accepted for the JAX CLI's flag and journaled: the port publishes "
-                   "no AOT executable bundle, so every checkpoint is served by capturing "
-                   "its graphs at warmup")
+                   help="ignore the checkpoint's AOT executable bundle (persist/aot.py) "
+                   "and capture every bucket at warmup, here and on every later "
+                   "/admin/deploy")
     v.add_argument("--xla-intra-op-threads", type=int, default=None,
                    help="torch host intra-op thread-pool size (torch.set_num_threads; the "
                    "host path and the CPU engine run there; default: min(4, cores/2) with "

@@ -121,7 +121,7 @@ def run_cycle(
     else:
         result = promotemod.promote(
             candidate_dir, model_path, router_url, verdict,
-            deploy_timeout_s=deploy_timeout_s,
+            deploy_timeout_s=deploy_timeout_s, device=dev,
         )
         _say(f"promotion: {result['result']}")
         summary = {

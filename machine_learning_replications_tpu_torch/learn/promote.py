@@ -25,12 +25,11 @@ the daemon's polling half accelerator-free.
 
 Port of the JAX package's ``learn/promote.py``: the publish goes through
 the port's own checkpoint format (``persist/checkpoint.py``, the same
-atomic rotation into ``<path>.lastgood`` and monotonic version), and
-publishes no AOT executable bundle — the port has none (a CUDA graph
-cannot be saved in one process and replayed in another), so every
-replica serves a promoted checkpoint by capturing its graphs at warm swap,
-as the JAX replicas serve a checkpoint without a bundle. ``aot=`` stays
-in the signatures for the JAX CLI's flags.
+atomic rotation into ``<path>.lastgood`` and monotonic version) and, by
+default, exports the AOT executable bundle (``persist/aot.py``) into it:
+promotion is publish time, so the rolling deploy's replicas restore the
+compiled program instead of capturing every bucket. The bundle is compiled
+for ``device``, where the replicas serve (default: the card).
 """
 
 from __future__ import annotations
@@ -91,6 +90,7 @@ def is_parked(candidate_dir: str | os.PathLike) -> bool:
 def publish_candidate(
     candidate_dir: str | os.PathLike, model_path: str | os.PathLike,
     aot: bool = True,
+    device=None,
 ) -> int | None:
     """Republish a shadow-approved candidate into the live checkpoint
     path: restore the candidate (integrity-verified) and ``save_model``
@@ -100,9 +100,12 @@ def publish_candidate(
     version. The candidate dir itself is untouched (it remains the
     refit's resumable artifact).
 
-    The candidate is read onto the CPU: a republish copies arrays and
-    needs no card. ``aot`` is accepted for the JAX signature; the port
-    has no executable bundle to export (module docstring)."""
+    By default the publish also exports the AOT executable bundle
+    (``persist.aot``), compiled for ``device`` (default: the card) and the
+    CPU: the rolling deploy that follows restores it on every replica, so
+    the compile is paid once, here. With ``aot=False`` the candidate is
+    read onto the CPU: a plain republish copies arrays and needs no card."""
+    from machine_learning_replications_tpu_torch.device import resolve_device
     from machine_learning_replications_tpu_torch.persist import checkpoint
 
     candidate_dir = os.path.abspath(os.fspath(candidate_dir))
@@ -111,8 +114,9 @@ def publish_candidate(
             f"candidate {candidate_dir!r} was refused by a shadow "
             "verdict (REFUSED.json present); refusing to publish it"
         )
-    params = checkpoint.load_model(candidate_dir, device="cpu")
-    checkpoint.save_model(model_path, params)
+    params = checkpoint.load_model(
+        candidate_dir, device=resolve_device(device) if aot else "cpu")
+    checkpoint.save_model(model_path, params, aot=aot)
     version = checkpoint.checkpoint_version(model_path)
     journal.event(
         "learn_candidate_published",
@@ -166,6 +170,7 @@ def promote(
     verdict: dict,
     deploy_timeout_s: float = 1800.0,
     aot: bool = True,
+    device=None,
 ) -> dict:
     """The gate, end to end: apply the shadow verdict, then either park
     (fail) or publish + rolling-deploy (pass). Returns
@@ -197,7 +202,7 @@ def promote(
             "candidate": candidate_dir,
             "reasons": verdict.get("reasons"),
         }
-    version = publish_candidate(candidate_dir, model_path, aot=aot)
+    version = publish_candidate(candidate_dir, model_path, aot=aot, device=device)
     try:
         report = promote_via_router(
             router_url, model_path, timeout_s=deploy_timeout_s

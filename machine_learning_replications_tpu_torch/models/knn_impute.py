@@ -94,9 +94,15 @@ class ImputeBlock:
         complement columns through the dense-query form — the same
         restriction the JAX package makes, so the same distances are
         compared;
-      * ``dist_index``, set by ``on_device``, holds ``dist_cols`` as an
-        index tensor on the card, so a call uploads nothing (a CUDA-graph
-        capture may not copy from host memory).
+      * ``dist_index`` and ``nan_index``, set by ``on_device``, hold
+        ``dist_cols`` and ``nan_cols`` as index tensors on the card, so a
+        call uploads nothing (a CUDA-graph capture may not copy from host
+        memory).
+
+    The NaN columns are gathered, selected and written back as one block
+    (one op each, whatever their number); only the masked donor columns
+    take a pass each. Every step is a selection, so the values are those of
+    a column-by-column pass.
     """
 
     nan_cols: tuple[int, ...]
@@ -104,22 +110,30 @@ class ImputeBlock:
     dist_cols: "tuple[int, ...] | None" = None
     dist_index: "torch.Tensor | None" = dataclasses.field(default=None, compare=False,
                                                           repr=False)
+    nan_index: "torch.Tensor | None" = dataclasses.field(default=None, compare=False,
+                                                         repr=False)
 
     def on_device(self, device: torch.device) -> "ImputeBlock":
-        """This block with its distance columns resident on ``device``."""
-        if self.dist_cols is None:
-            return self
+        """This block with its distance and NaN columns resident on
+        ``device``."""
         return dataclasses.replace(
-            self, dist_index=torch.as_tensor(self.dist_cols, device=device))
+            self,
+            dist_index=(None if self.dist_cols is None
+                        else torch.as_tensor(self.dist_cols, device=device)),
+            nan_index=torch.as_tensor(self.nan_cols, dtype=torch.long, device=device))
+
+    @staticmethod
+    def _index(resident, cols, device) -> torch.Tensor:
+        if resident is None or resident.device != device:
+            return torch.as_tensor(cols, dtype=torch.long, device=device)
+        return resident
 
     def distances(self, params: KNNImputerParams, X: torch.Tensor) -> torch.Tensor:
         """``[nq, n_fit]`` squared nan-euclidean distances, NaN → +inf."""
         if self.dist_cols is None:
             D = masked_pairwise_sq_dists(X, params.donors)
         else:
-            cols = self.dist_index
-            if cols is None or cols.device != X.device:
-                cols = torch.as_tensor(self.dist_cols, device=X.device)
+            cols = self._index(self.dist_index, self.dist_cols, X.device)
             D = masked_pairwise_sq_dists_dense_query(X.index_select(1, cols),
                                                      params.donors.index_select(1, cols))
         return torch.where(torch.isnan(D), torch.inf, D)
@@ -129,27 +143,37 @@ class ImputeBlock:
         first nearest eligible donor, and whether one exists at a finite
         distance."""
         D = self.distances(params, X)
-        shared = torch.min(D, dim=1)            # first minimal index
-        idx, ok = [], []
-        for fcol in self.nan_cols:
+        first = torch.arange(D.shape[1], device=D.device)
+        shared, shared_idx = _first_min(D, first)
+        k = len(self.nan_cols)
+        idx = shared_idx[:, None].repeat(1, k)
+        ok = torch.isfinite(shared)[:, None].repeat(1, k)
+        for pos, fcol in enumerate(self.nan_cols):
             if fcol in self.masked_donor_cols:
                 has = ~torch.isnan(params.donors[:, fcol])
-                best = torch.min(D.masked_fill(~has[None, :], torch.inf), dim=1)
-            else:
-                best = shared
-            idx.append(best.indices)
-            ok.append(torch.isfinite(best.values))
-        return torch.stack(idx, dim=1), torch.stack(ok, dim=1)
+                best, best_idx = _first_min(D.masked_fill(~has[None, :], torch.inf), first)
+                idx[:, pos] = best_idx
+                ok[:, pos] = torch.isfinite(best)
+        return idx, ok
 
     def __call__(self, params: KNNImputerParams, X: torch.Tensor) -> torch.Tensor:
+        if not self.nan_cols:
+            return X.clone()
         idx, ok = self.donors(params, X)
-        out = X.clone()
-        for k, fcol in enumerate(self.nan_cols):
-            donated = torch.where(ok[:, k], params.donors[idx[:, k], fcol],
-                                  params.col_means[fcol]).to(X.dtype)
-            col = X[:, fcol]
-            out[:, fcol] = torch.where(torch.isnan(col), donated, col)
-        return out
+        cols = self._index(self.nan_index, self.nan_cols, X.device)
+        donated = torch.where(ok, params.donors[idx, cols[None, :]],
+                              params.col_means.index_select(0, cols)[None, :]).to(X.dtype)
+        held = X.index_select(1, cols)
+        return X.index_copy(1, cols, torch.where(torch.isnan(held), donated, held))
+
+
+def _first_min(D: torch.Tensor, cols: torch.Tensor):
+    """``(values, indices)`` of each row's minimum, the index the first
+    minimal one (``torch.min(dim=1)``'s), as two plain reductions: a
+    compiler lowers them to far less code than a paired value-index
+    reduction."""
+    values = torch.amin(D, dim=1)
+    return values, torch.where(D == values[:, None], cols, D.shape[1]).amin(dim=1)
 
 
 def donor_nan_columns(params: KNNImputerParams) -> np.ndarray:

@@ -68,6 +68,8 @@ METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "resilience_engine_restarts_total": ("counter", ("result",)),
     "resilience_watchdog_trips_total": ("counter", ()),
     # -- serve/ --------------------------------------------------------------
+    "serve_aot_fallback_total": ("counter", ("reason",)),
+    "serve_aot_restore_seconds": ("gauge", ("path", "bucket")),
     "serve_deploys_total": ("counter", ("result",)),
     "serve_host_fallback_total": ("counter", ()),
     "serve_model_version": ("gauge", ()),
@@ -150,6 +152,9 @@ EVENTS: dict[str, tuple[str, ...]] = {
     "checkpoint_restore": ("stage",),
     "checkpoint_corrupt": ("stage", "error"),
     "checkpoint_rollback": ("path", "lastgood", "error"),
+    "aot_export": ("path", "blobs", "seconds"),
+    "aot_restore": ("role", "bucket", "seconds"),
+    "aot_fallback": ("reason",),
     # -- serving (serve/) ----------------------------------------------------
     "flush": ("seq", "rows", "ok"),
     "deploy_start": ("path", "from_version", "replica"),

@@ -176,24 +176,31 @@ def _decode(node: dict, arrays, dev: torch.device) -> Any:
     raise ValueError(f"malformed sidecar node: {sorted(node)}")
 
 
-def save_model(path: "str | os.PathLike", params: Any) -> int:
+def save_model(path: "str | os.PathLike", params: Any, *, aot: bool = False) -> int:
     """Publish ``params`` (a ``PipelineParams``, ``StackingParams`` or
     ``TreeEnsembleParams``) at ``path`` atomically; a checkpoint already
     there becomes the last-known-good. Journals ``checkpoint_publish``.
-    Returns the new version."""
+    Returns the new version.
+
+    ``aot=True`` also compiles the serving engine's program into the same
+    publish (``persist.aot.export_aot``): replicas that restore this
+    checkpoint load it instead of capturing every bucket. The compile is
+    paid here, once, at publish time; the packages are checksummed with
+    the other files."""
     family = type(params).__name__
     if family not in FAMILIES:
         raise TypeError(f"a checkpoint holds one of {FAMILIES}, not {family}")
-    return _publish_journaled(path, params, family)
+    return _publish_journaled(path, params, family, aot=aot)
 
 
-def _publish_journaled(path: "str | os.PathLike", params: Any, family: str) -> int:
-    version = _publish(path, params, family)
+def _publish_journaled(path: "str | os.PathLike", params: Any, family: str, *,
+                       aot: bool = False) -> int:
+    version = _publish(path, params, family, aot=aot)
     journal.event("checkpoint_publish", path=os.path.abspath(os.fspath(path)), version=version)
     return version
 
 
-def _publish(path: "str | os.PathLike", params: Any, family: str) -> int:
+def _publish(path: "str | os.PathLike", params: Any, family: str, *, aot: bool = False) -> int:
     path = os.path.abspath(os.fspath(path))
     prev = [v for v in (checkpoint_version(path), checkpoint_version(lastgood_path(path)))
             if v is not None]
@@ -210,6 +217,10 @@ def _publish(path: "str | os.PathLike", params: Any, family: str) -> int:
             os.fsync(f.fileno())
         fsync_json_dump(os.path.join(tmp, SIDECAR_FILE),
                         {"format": FORMAT, "family": family, "root": root})
+        if aot:
+            from machine_learning_replications_tpu_torch.persist.aot import export_aot
+
+            export_aot(tmp, params)
         files = {rel: {"sha256": _sha256(os.path.join(tmp, rel)),
                        "bytes": os.path.getsize(os.path.join(tmp, rel))}
                  for rel in _payload_files(tmp)}

@@ -21,7 +21,10 @@ so the served numbers are the port's own. ``trace_counts[b]`` counts
 captures; on the CPU nothing is captured and a bucket's first run counts
 once as its "compile", so ``compile_count()`` stays bounded by the ladder
 on both. A capture or replay that fails raises: nothing moves to the CPU
-or to the eager route behind the caller's back.
+or to the eager route behind the caller's back. With a published AOT
+bundle (``persist.aot``) warmup restores each bucket's compiled program
+instead of capturing it; a restore that fails falls back, journaled and
+counted, to the capture on the same device.
 
 What a graph may not do, and what the engine does about it:
 
@@ -65,6 +68,7 @@ import torch
 from machine_learning_replications_tpu_torch.device import resolve_device, to_host
 from machine_learning_replications_tpu_torch.obs import journal, torchmon
 from machine_learning_replications_tpu_torch.obs.registry import REGISTRY
+from machine_learning_replications_tpu_torch.persist.aot import GraphInputs, outputs_to_step
 from machine_learning_replications_tpu_torch.resilience import faults
 
 DEFAULT_BUCKETS = (1, 8, 32, 64, 128, 256, 512)
@@ -77,6 +81,33 @@ WARMUP_SECONDS = REGISTRY.gauge(
     "bucket).",
     labels=("path", "bucket"),
 )
+#: Per-bucket AOT package restore wall seconds (the load of the published
+#: package — the cost that replaces the bucket's capture when a checkpoint
+#: ships a bundle, ``persist.aot``).
+AOT_RESTORE_SECONDS = REGISTRY.gauge(
+    "serve_aot_restore_seconds",
+    "AOT executable restore wall seconds per bucket (labels: "
+    "path=device|host, bucket).",
+    labels=("path", "bucket"),
+)
+#: AOT restore failures that fell back to capturing the bucket, by reason:
+#: a replica that started correctly but slowly.
+AOT_FALLBACKS = REGISTRY.counter(
+    "serve_aot_fallback_total",
+    "AOT restore failures that fell back to tracing, by reason "
+    "(fingerprint_mismatch, missing_backend, family_mismatch, "
+    "missing_bucket, deserialize_error, exec_error, parity_mismatch, "
+    "manifest_unreadable).",
+    labels=("reason",),
+)
+# Every reason gets a zero-baseline series at import: an alert must tell
+# "never happened" from a scrape that predates the first firing.
+for _reason in (
+    "fingerprint_mismatch", "missing_backend", "family_mismatch",
+    "missing_bucket", "deserialize_error", "exec_error",
+    "parity_mismatch", "manifest_unreadable",
+):
+    AOT_FALLBACKS.labels(reason=_reason)
 
 #: Extra-dispatch cost of one more sub-batch, in padded-row equivalents
 #: (the JAX engine's default; a split must save at least this much padding
@@ -141,6 +172,22 @@ def family_core(params):
         f"cannot serve params of type {type(params).__name__}; "
         "expected PipelineParams, TreeEnsembleParams, or StackingParams"
     )
+
+
+def forward_step(family: str, core, dtype, p, cols, block, Xs: torch.Tensor):
+    """``(p1, members | None, qrows)`` of one bucket from ``Xs`` on the
+    parameters' device: the body each bucket's graph captures, the CPU runs
+    directly and ``persist.aot`` compiles (there every tensor argument is a
+    graph input). ``cols``/``block`` are a pipeline's pre-resolved support
+    columns and imputer block."""
+    if family == "pipeline":
+        X17 = block(p.imputer, Xs).index_select(1, cols)
+        p1, m = core(p.ensemble, X17.to(dtype))
+        return p1, m, X17
+    if family == "tree":
+        return core(p, Xs), None, Xs
+    p1, m = core(p, Xs)
+    return p1, m, Xs
 
 
 def _ensemble(params):
@@ -218,8 +265,17 @@ class BucketedPredictEngine:
 
     ``trace_counts`` maps bucket size → the number of times that bucket was
     captured as a CUDA graph (on the CPU: first run), so tests can assert
-    the bound directly. ``role`` labels the warmup telemetry (``device``
-    for the batch engine, ``host`` for the fast-path scorer).
+    the bound directly.
+
+    ``aot`` (a ``persist.aot.AotView``) lets ``warmup`` restore the
+    published package instead of capturing: a restored bucket runs the
+    loaded program on the engine's stream, under its lock, and counts no
+    capture. Restores fail open per bucket: any failure (fingerprint,
+    structure, a torn package, a program that disagrees with the eager
+    oracle) is journaled (``aot_fallback``), counted
+    (``serve_aot_fallback_total``) and that bucket is captured on the same
+    device as without a bundle. ``aot_role`` labels the telemetry
+    (``device`` for the batch engine, ``host`` for the fast-path scorer).
     """
 
     def __init__(
@@ -231,7 +287,8 @@ class BucketedPredictEngine:
         max_split: int = DEFAULT_MAX_SPLIT,
         *,
         device=None,
-        role: str = "device",
+        aot=None,
+        aot_role: str = "device",
     ) -> None:
         from machine_learning_replications_tpu_torch import convert
         from machine_learning_replications_tpu_torch.models import pipeline
@@ -251,7 +308,11 @@ class BucketedPredictEngine:
         self.trace_counts: dict[int, int] = {}
         self.warm = False
         self.n_features = 17  # the predict_hf.py:5-27 contract width
-        self.role = str(role)
+        self.aot = aot
+        self.aot_role = str(aot_role)
+        # bucket -> restored runner (``X -> (p1, members, qrows)``), filled
+        # by warmup; a bucket not in here is captured (or run, on the CPU).
+        self._aot_execs: dict = {}
         # obs.quality.QualityMonitor (or a feed, or None): every predict()
         # feeds it the batch's REAL rows in the model's input space —
         # post-impute post-select for the pipeline route, the contract rows
@@ -279,6 +340,7 @@ class BucketedPredictEngine:
             self._block = pipeline.resolve_contract_block_fn(p).on_device(self.device)
             self._in_dtype = torch.promote_types(torch.float64, p.imputer.donors.dtype)
         else:
+            self._cols = self._block = None
             self._in_dtype = self._dtype
 
     # -- the forward step ----------------------------------------------------
@@ -286,15 +348,8 @@ class BucketedPredictEngine:
     def _forward(self, Xs: torch.Tensor):
         """``(p1, members | None, qrows)`` from ``Xs`` on the device: the
         body each bucket's graph captures (and the CPU runs directly)."""
-        p = self.params
-        if self.family == "pipeline":
-            X17 = self._block(p.imputer, Xs).index_select(1, self._cols)
-            p1, m = self._core(p.ensemble, X17.to(self._dtype))
-            return p1, m, X17
-        if self.family == "tree":
-            return self._core(p, Xs), None, Xs
-        p1, m = self._core(p, Xs)
-        return p1, m, Xs
+        return forward_step(self.family, self._core, self._dtype, self.params,
+                            self._cols, self._block, Xs)
 
     def _eager_nan_route(self, X17: np.ndarray):
         """A direct caller's contract rows holding a NaN widen the imputer's
@@ -349,14 +404,28 @@ class BucketedPredictEngine:
         """One ladder bucket: ``(p1, members, qrows)`` as host arrays
         (``members``/``qrows`` only when ``feed``)."""
         b = Xb.shape[0]
+        restored = self._aot_execs.get(b)
         if self._stream is None:
-            if b not in self.trace_counts:
-                self._note_trace(b)
-            outs = self._forward(torch.as_tensor(Xb).to(self._in_dtype))
+            if restored is not None:
+                outs = restored(torch.as_tensor(Xb).to(self._in_dtype))
+            else:
+                if b not in self.trace_counts:
+                    self._note_trace(b)
+                outs = self._forward(torch.as_tensor(Xb).to(self._in_dtype))
             return tuple(
                 None if t is None or (i and not feed) else to_host(t)
                 for i, t in enumerate(outs)
             )
+        if restored is not None:
+            with self._lock:
+                self._stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._stream):
+                    p1, members, qrows = restored(
+                        torch.from_numpy(Xb).to(self.device).to(self._in_dtype))
+                    p1 = to_host(p1)
+                    members = to_host(members) if feed and members is not None else None
+                    qrows = to_host(qrows) if feed else None
+            return p1, members, qrows
         with self._lock:
             g = self._graphs.get(b)
             if g is None:
@@ -478,11 +547,13 @@ class BucketedPredictEngine:
 
     def warmup(self, say=None) -> dict[int, float]:
         """Make every ladder bucket hot up front (example-patient rows):
-        capture its graph on a CUDA device, run it once on the CPU, then
-        hold every lane of the bucket's output to the eager oracle at
-        ``parity_tolerance`` — a bucket that cannot reproduce the oracle
-        raises instead of serving. Returns per-bucket wall seconds (also
-        the ``serve_warmup_seconds`` gauge; ``say`` is kept for interface
+        restore it from the ``aot`` bundle, or capture its graph on a CUDA
+        device, or run it once on the CPU, then hold every lane of the
+        bucket's output to the eager oracle at ``parity_tolerance``. A
+        restored bucket that fails (or disagrees) falls back, journaled, to
+        a capture; a captured bucket that disagrees raises instead of
+        serving. Returns per-bucket wall seconds (also the
+        ``serve_warmup_seconds`` gauge; ``say`` is kept for interface
         compatibility)."""
         from machine_learning_replications_tpu_torch.data.examples import patient_row
 
@@ -490,22 +561,98 @@ class BucketedPredictEngine:
         # (the factory re-warms), exercising the bounded-backoff retry.
         faults.fire("engine.warmup")
         row = patient_row()
+        if self.aot is not None and not self._aot_execs:
+            self._restore_aot()
         want = float(oracle_proba1(self.params, row)[0])
-        rtol, atol = parity_tolerance(self.params)
         times: dict[int, float] = {}
         for b in self.buckets:
-            t0 = time.monotonic()
-            with journal.stage_scope(f"serve_warmup:{self.role}:b{b}"):
-                if self._stream is not None and b not in self._graphs:
-                    with self._lock:
-                        self._capture(b)
-                p1 = self._run_bucket(np.repeat(self._host_rows(row), b, axis=0), False)[0]
-            if p1.shape != (b,) or not np.allclose(p1, want, rtol=rtol, atol=atol):
-                raise RuntimeError(
-                    f"bucket {b} does not reproduce the eager oracle: "
-                    f"{np.asarray(p1).tolist()[:4]} vs {want}"
-                )
-            times[b] = time.monotonic() - t0
-            WARMUP_SECONDS.set(times[b], path=self.role, bucket=str(b))
+            times[b] = self._warm_bucket(b, row, want)
         self.warm = True
         return times
+
+    def _restore_aot(self) -> None:
+        """Load the bundle's package for every bucket (fails open per
+        bucket: a failed load journals and counts a fallback and leaves the
+        bucket to be captured). The bundle-level gate — fingerprint,
+        family, backend coverage — runs once."""
+        try:
+            bad = self.aot.unusable_reason(self.family, dtype=self._dtype)
+        except Exception as exc:  # a torn manifest must not kill warmup
+            bad = ("manifest_unreadable", f"{type(exc).__name__}: {exc}")
+        if bad is not None:
+            code, detail = bad
+            self._aot_fallback(code, detail=detail)
+            return
+        gi = GraphInputs(self)
+        for b in self.buckets:
+            t0 = time.monotonic()
+            try:
+                model = self.aot.load_exec(b, gi.structure, self.device)
+            except Exception as exc:
+                self._aot_fallback("deserialize_error", bucket=b,
+                                   detail=f"{type(exc).__name__}: {exc}")
+                continue
+            if model is None:
+                self._aot_fallback("missing_bucket", bucket=b)
+                continue
+            dt = time.monotonic() - t0
+            self._aot_execs[b] = functools.partial(
+                _run_restored, model, gi.inputs, self.family)
+            AOT_RESTORE_SECONDS.set(dt, path=self.aot_role, bucket=str(b))
+            journal.event("aot_restore", role=self.aot_role, bucket=b,
+                          seconds=round(dt, 4))
+
+    def _aot_fallback(self, reason: str, bucket=None, detail=None) -> None:
+        # Journal key is `role` (device|host), not `path`: persist.aot's
+        # emits carry `path` as a filesystem path.
+        AOT_FALLBACKS.inc(reason=reason)
+        journal.event("aot_fallback", reason=reason, role=self.aot_role,
+                      bucket=bucket, detail=detail)
+
+    def _warm_bucket(self, b: int, row, want: float) -> float:
+        """One bucket's warmup: run the restored program (or capture), hold
+        every lane to the oracle, and on a restored bucket's failure fall
+        back to a capture. Returns the bucket's wall seconds, fallback
+        included."""
+        rows = np.repeat(self._host_rows(row), b, axis=0)
+        rtol, atol = parity_tolerance(self.params)
+        via_aot = b in self._aot_execs
+        t0 = time.monotonic()
+        p1 = None
+        with journal.stage_scope(f"serve_warmup:{self.aot_role}:b{b}"):
+            try:
+                if not via_aot and self._stream is not None and b not in self._graphs:
+                    with self._lock:
+                        self._capture(b)
+                p1 = self._run_bucket(rows, False)[0]
+            except Exception:
+                if not via_aot:
+                    raise  # a capture that fails is a real engine failure
+        if via_aot:
+            # Whole-vector check: the warmup rows are b copies of one
+            # patient, so EVERY lane must equal the oracle.
+            reason = ("exec_error" if p1 is None else None if (
+                np.shape(p1) == (b,) and np.allclose(p1, want, rtol=rtol, atol=atol)
+            ) else "parity_mismatch")
+            if reason is not None:
+                self._aot_fallback(reason, bucket=b)
+                del self._aot_execs[b]
+                with journal.stage_scope(f"serve_warmup:{self.aot_role}:b{b}:retrace"):
+                    if self._stream is not None:
+                        with self._lock:
+                            self._capture(b)
+                    p1 = self._run_bucket(rows, False)[0]
+        if p1.shape != (b,) or not np.allclose(p1, want, rtol=rtol, atol=atol):
+            raise RuntimeError(
+                f"bucket {b} does not reproduce the eager oracle: "
+                f"{np.asarray(p1).tolist()[:4]} vs {want}"
+            )
+        dt = time.monotonic() - t0
+        WARMUP_SECONDS.set(dt, path=self.aot_role, bucket=str(b))
+        return dt
+
+
+def _run_restored(model, inputs, family: str, X: torch.Tensor):
+    """A restored bucket: the loaded package on the engine's inputs and
+    ``X`` → ``(p1, members, qrows)``."""
+    return outputs_to_step(family, model(inputs, X), X)

@@ -79,14 +79,16 @@ class HostScorer(BucketedPredictEngine):
 
     ``quality`` is the same feed object the device engine holds, so
     host-scored rows reach the drift monitor exactly like device-scored
-    ones.
+    ones. ``aot`` is the bundle's ``cpu`` view (``persist.aot``): the
+    scorer restores its buckets from it, as the device engine does.
     """
 
-    def __init__(self, params, buckets=DEFAULT_HOST_BUCKETS, quality=None) -> None:
+    def __init__(self, params, buckets=DEFAULT_HOST_BUCKETS, quality=None,
+                 aot=None) -> None:
         from machine_learning_replications_tpu_torch import convert
 
         super().__init__(convert.params_to(params, "cpu"), buckets=buckets, quality=quality,
-                         device="cpu", role="host")
+                         device="cpu", aot=aot, aot_role="host")
 
 
 class _HostPending:

@@ -7,8 +7,8 @@ the port's ``BucketedPredictEngine`` (one CUDA graph per bucket on the
 card), ``make_server`` takes ``device=`` (default: the card), ``/metrics``
 appends the port's runtime accounting (``obs.torchmon``), ``/debug/profile``
 captures with ``torch.profiler`` and ``/admin/deploy`` loads port
-checkpoints (``persist.checkpoint``). Not ported yet: the pre-fork
-``SO_REUSEPORT`` workers and the AOT executable bundles.
+checkpoints (``persist.checkpoint``) and restores their AOT executable
+bundles (``persist.aot``).
 
 The stack is three layers since the transport refactor (docs/SERVING.md
 "Transport architecture"):
@@ -231,6 +231,7 @@ class ServerHandle:
         host=None, router=None, quality_feed=None,
         model_version: int | None = None, replica_id: str | None = None,
         admin_enabled: bool = False, live=None, say=None, device=None,
+        use_aot: bool = True,
     ) -> None:
         self.engine = engine
         self.batcher = batcher
@@ -253,6 +254,9 @@ class ServerHandle:
         self.admin_enabled = admin_enabled  # /admin/deploy opt-in
         # Where the engine runs: deploys load the new checkpoint there.
         self.device = device
+        # AOT restore policy: when False (cli serve --no-aot) deploys ignore
+        # published bundles and capture every bucket.
+        self.use_aot = use_aot
         # The live-params holder the supervised-restart factory reads
         # through (make_server) — deploys update it so a post-deploy
         # restart rebuilds the CURRENT model, not the boot-time one.
@@ -388,6 +392,14 @@ class ServerHandle:
                 state="warming", to_version=info["version"],
                 rolled_back=info["rolled_back"],
             )
+            # The bundle comes from the directory that ACTUALLY restored: a
+            # rollback serves the last-known-good's packages, never the
+            # corrupt target's.
+            aot_bundle = None
+            if self.use_aot:
+                from machine_learning_replications_tpu_torch.persist import aot as aot_mod
+
+                aot_bundle = aot_mod.load_bundle(info["path"])
             engine_buckets = self.engine.buckets
             # The new engine keeps feeding the SAME quality monitor only
             # when the input space is unchanged; a different family (or
@@ -420,6 +432,8 @@ class ServerHandle:
                 eng = BucketedPredictEngine(
                     params, buckets=engine_buckets, quality=quality,
                     device=self.device,
+                    aot=(aot_bundle.for_backend(self.device.type)
+                         if aot_bundle is not None else None),
                 )
                 # The version tags the engine (not just handle state) so
                 # replies name the version of the bits they carry even
@@ -435,6 +449,7 @@ class ServerHandle:
                 new_scorer = HostScorer(
                     params, buckets=self.host.scorer.buckets,
                     quality=quality,
+                    aot=aot_bundle.for_backend("cpu") if aot_bundle is not None else None,
                 )
                 new_scorer.model_version = info["version"]
                 new_scorer.warmup(say=self._say)
@@ -1370,6 +1385,8 @@ def make_server(
     incident_retention: int = 8,
     reuse_port: bool = False,
     worker_id: int | None = None,
+    aot_bundle=None,
+    use_aot: bool = True,
     *,
     device=None,
 ) -> ServerHandle:
@@ -1456,6 +1473,13 @@ def make_server(
     ``/admin/deploy`` warm-swap endpoint (``ServerHandle.deploy_model``)
     — off by default for the same reason ``/debug/faults`` is.
 
+    AOT restore (``persist.aot``): ``aot_bundle`` is the served
+    checkpoint's published bundle (``persist.aot.load_bundle``); warmup
+    restores the engine's buckets from its ``device``-backend view and the
+    host scorer's from its ``cpu`` view, with a journaled, counted
+    fallback to capture per bucket. ``use_aot=False`` (``cli serve
+    --no-aot``) ignores bundles everywhere, later deploys included.
+
     The listener BINDS before warmup runs: a port conflict fails in
     milliseconds instead of after the captures. Warmup still completes
     before this returns (warm standby — the first served request never
@@ -1524,8 +1548,16 @@ def make_server(
         engine_quality = quality_feed
     if fault_endpoint:
         faults.enable_endpoint()
+    if not use_aot:
+        aot_bundle = None
+    device_aot = host_aot = None
+    if aot_bundle is not None:
+        # One bundle, two views: the card's package for the batch engine,
+        # the CPU package for the host fast path.
+        device_aot = aot_bundle.for_backend(dev.type)
+        host_aot = aot_bundle.for_backend("cpu")
     engine = BucketedPredictEngine(
-        params, buckets=buckets, quality=engine_quality, device=dev
+        params, buckets=buckets, quality=engine_quality, device=dev, aot=device_aot,
     )
     # Fleet identity rides ON the computing engine, not just the handle:
     # around a warm swap (/admin/deploy), in-flight flushes finish on the
@@ -1538,12 +1570,13 @@ def make_server(
 
         def rebuild_engine():
             # Restart path (supervisor thread, off the request path):
-            # fresh graphs, ALWAYS re-captured at warmup — a restarted
-            # engine that made the first post-recovery requests pay the
-            # captures would turn recovery into a tail-latency incident.
+            # fresh graphs (or the bundle's packages), ALWAYS warmed — a
+            # restarted engine that made the first post-recovery requests
+            # pay the captures would turn recovery into a tail-latency
+            # incident.
             eng = BucketedPredictEngine(
                 params, buckets=engine_buckets, quality=engine_quality,
-                device=dev,
+                device=dev, aot=device_aot,
             )
             eng.model_version = model_version
             eng.warmup(say=say)
@@ -1572,7 +1605,7 @@ def make_server(
     host_pool = router = None
     if host_path:
         scorer = HostScorer(
-            params, buckets=host_buckets, quality=engine_quality,
+            params, buckets=host_buckets, quality=engine_quality, aot=host_aot,
         )
         scorer.model_version = model_version
         host_pool = HostPath(scorer, workers=host_workers, metrics=metrics)
@@ -1604,7 +1637,7 @@ def make_server(
         host=host_pool, router=router, quality_feed=quality_feed,
         model_version=model_version, replica_id=replica_id,
         admin_enabled=admin_endpoint, live={"params": params}, say=say,
-        device=dev,
+        device=dev, use_aot=use_aot,
     )
     if history_interval_s > 0:
         handle.history = timeseries.TimeSeriesStore(

@@ -254,19 +254,24 @@ def test_commands_want_the_card_by_default(argv, monkeypatch):
 def test_parser_has_the_jax_commands_and_flags():
     parser = cli.build_parser()
     sub = next(a for a in parser._actions if a.dest == "command")
+    jsub = next(a for a in jcli.build_parser()._actions if a.dest == "command")
     assert set(sub.choices) == {"train", "predict", "sweep", "import-sklearn", "serve", "score",
                                 "learn", "fleet"}
     flags = {name: {o for a in p._actions for o in a.option_strings}
              for name, p in sub.choices.items()}
-    assert {"--plots", "--trace-dir", "--journal", "--save", "--resume-dir"} <= flags["train"]
+    assert {"--plots", "--trace-dir", "--journal", "--save", "--resume-dir",
+            "--aot"} <= flags["train"]
     assert {"--model", "--pkl", "--patient", "--trace-dir", "--journal"} <= flags["predict"]
     assert {"--n-estimators", "--max-depth", "--folds", "--save"} <= flags["sweep"]
     assert "--trace-dir" not in flags["sweep"]      # JAX's sweep has no obs flags
-    assert {"--pkl", "--out"} <= flags["import-sklearn"]
+    assert {"--pkl", "--out", "--aot"} <= flags["import-sklearn"]
+    # --aot as the JAX parser has it on both publishing commands
+    for name in ("train", "import-sklearn"):
+        jflags = {o for a in jsub.choices[name]._actions for o in a.option_strings}
+        assert "--aot" in jflags, name
     # serve: every flag of the JAX parser's, plus --device and the private
     # --worker-id a multi-worker parent hands its workers; fleet: every role
     # and flag of the JAX parser's, no --device (no fleet role uses the card)
-    jsub = next(a for a in jcli.build_parser()._actions if a.dest == "command")
     jserve = {o for a in jsub.choices["serve"]._actions for o in a.option_strings}
     assert flags["serve"] == jserve | {"--device", "--worker-id"}
     froles = next(a for a in sub.choices["fleet"]._actions if a.dest == "role").choices
@@ -276,7 +281,8 @@ def test_parser_has_the_jax_commands_and_flags():
         got = {o for a in p._actions for o in a.option_strings}
         assert got == {o for a in jfroles[role]._actions for o in a.option_strings}, role
     # score: every flag of the JAX parser's, plus --device; learn: every role
-    # and flag, --device on the roles that fit or replay a model
+    # and flag, --device on the roles that fit or replay a model and on
+    # promote (where its AOT bundle is compiled)
     jscore = {o for a in jsub.choices["score"]._actions for o in a.option_strings}
     assert flags["score"] == jscore | {"--device"}
     roles = next(a for a in sub.choices["learn"]._actions if a.dest == "role").choices
@@ -285,7 +291,7 @@ def test_parser_has_the_jax_commands_and_flags():
     for role, p in roles.items():
         got = {o for a in p._actions for o in a.option_strings}
         want = {o for a in jroles[role]._actions for o in a.option_strings}
-        assert got == want | ({"--device"} if role not in ("status", "promote") else set()), role
+        assert got == want | ({"--device"} if role != "status" else set()), role
     defaults = parser.parse_args(["sweep"])
     jdefaults = jcli.build_parser().parse_args(["sweep"])
     for k in ("n_estimators", "max_depth", "folds", "synthetic", "missing_rate", "seed"):

@@ -1164,3 +1164,99 @@ def test_parallel_two_gloo_ranks_share_the_card(cuda_device, tmp_path, depth):
     np.testing.assert_allclose(ranks[0]["deviance"],
                                torch.as_tensor(single_aux["train_deviance"]).cpu().numpy(),
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# AOT executable bundles (persist/aot.py): export on the card, restore
+# without a capture
+# ---------------------------------------------------------------------------
+
+_AOT_BUNDLES: dict = {}
+
+
+def _aot_bundle(dev, family, ens_dtype, root):
+    """The family's card bundle (device ladder only), exported once per
+    session into ``root``: ``(params, bundle directory)``."""
+    from machine_learning_replications_tpu_torch.persist import aot
+
+    key = (family, ens_dtype)
+    if key not in _AOT_BUNDLES:
+        params = _serve_families(dev, ens_dtype)[family]
+        path = os.path.join(root, f"{family}_{str(ens_dtype)[6:]}")
+        os.makedirs(path)
+        manifest = aot.export_aot(path, params, host_buckets=())
+        assert {b["backend"] for b in manifest["blobs"]} == {"cuda"}
+        _AOT_BUNDLES[key] = (params, path)
+    return _AOT_BUNDLES[key]
+
+
+@pytest.fixture(scope="module")
+def aot_root(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("aot"))
+
+
+@pytest.mark.parametrize("ens_dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("family", ["stacking", "tree", "pipeline"])
+def test_aot_restore_equals_the_eager_oracle_on_the_card(cuda_device, aot_root, family,
+                                                          ens_dtype):
+    """Every bucket restores from the card's package with no capture and no
+    fallback; every lane of every bucket (warmup) and every plan of a
+    request batch equals the eager oracle at ``parity_tolerance``."""
+    from machine_learning_replications_tpu_torch.obs import torchmon
+    from machine_learning_replications_tpu_torch.persist import aot
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    params, path = _aot_bundle(cuda_device, family, ens_dtype, aot_root)
+    torchmon.install()
+    before = torchmon.totals()["torch_graph_captures_total"]
+    fallbacks = engine.AOT_FALLBACKS.snapshot()
+    eng = engine.BucketedPredictEngine(params, device=cuda_device,
+                                       aot=aot.load_bundle(path).for_backend("cuda"))
+    eng.warmup()
+    assert sorted(eng._aot_execs) == list(engine.DEFAULT_BUCKETS)
+    assert eng.compile_count() == 0 and not eng._graphs
+    assert torchmon.totals()["torch_graph_captures_total"] == before
+    assert engine.AOT_FALLBACKS.snapshot() == fallbacks
+    X = _serve_rows(1100)
+    rtol, atol = engine.parity_tolerance(params)
+    for n in (1, 7, 9, 64, 150, 700, 1100):
+        np.testing.assert_allclose(eng.predict(X[:n]), engine.oracle_proba1(params, X[:n]),
+                                   rtol=rtol, atol=atol)
+    assert eng.compile_count() == 0
+
+
+_AOT_CHILD = """
+import json, sys
+import numpy as np
+from machine_learning_replications_tpu_torch.persist import aot, checkpoint
+from machine_learning_replications_tpu_torch.serve import engine
+params = checkpoint.load_model(sys.argv[1])
+eng = engine.BucketedPredictEngine(params, aot=aot.load_bundle(sys.argv[1]).for_backend("cuda"))
+eng.warmup()
+rows = np.asarray(json.loads(sys.argv[2]))
+print(json.dumps({"restored": sorted(eng._aot_execs), "captures": eng.compile_count(),
+                  "p1": eng.predict(rows).tolist()}))
+"""
+
+
+def test_aot_bundle_restores_in_a_fresh_process_on_the_card(cuda_device, tmp_path):
+    """``save_model(aot=True)`` on the card, then a process that never
+    compiled anything restores every bucket and answers the oracle."""
+    import json
+    import subprocess
+    import sys
+
+    from machine_learning_replications_tpu_torch.persist import checkpoint
+    from machine_learning_replications_tpu_torch.serve import engine
+
+    params = _serve_families(cuda_device)["stacking"]
+    model = str(tmp_path / "model")
+    checkpoint.save_model(model, params, aot=True)
+    X = _serve_rows(70)
+    proc = subprocess.run([sys.executable, "-c", _AOT_CHILD, model, json.dumps(X.tolist())],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["restored"] == list(engine.DEFAULT_BUCKETS) and got["captures"] == 0
+    rtol, atol = engine.parity_tolerance(params)
+    np.testing.assert_allclose(got["p1"], engine.oracle_proba1(params, X), rtol=rtol, atol=atol)

@@ -689,7 +689,9 @@ def test_publish_candidate_rotates_the_live_path(tmp_path, live):
     live_dir, cand = tmp_path / "live", tmp_path / "cand"
     checkpoint.save_model(str(live_dir), live["stacking"])
     checkpoint.save_model(str(cand), live["pipeline"])
-    assert promotemod.publish_candidate(cand, live_dir) == 2
+    # a plain republish (aot=False) needs no card and compiles nothing; the
+    # default bundle is exercised by the promotion through the router below
+    assert promotemod.publish_candidate(cand, live_dir, aot=False) == 2
     assert type(checkpoint.load_model(str(live_dir), device="cpu")).__name__ == "PipelineParams"
     assert checkpoint.checkpoint_version(checkpoint.lastgood_path(live_dir)) == 1
     assert checkpoint.checkpoint_version(cand) == 1       # the candidate stays

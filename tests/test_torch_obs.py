@@ -477,6 +477,10 @@ def test_code_and_catalog_agree():
     assert {k: v[:2] for k, v in families.items()} == catalog.METRICS
     emitted = {kind for kind, *_ in events}
     assert emitted == set(catalog.EVENTS), (emitted ^ set(catalog.EVENTS))
+    # the AOT bundles' families (serve/engine.py) and events (persist/aot.py,
+    # serve/engine.py) are registered and emitted
+    assert {"serve_aot_restore_seconds", "serve_aot_fallback_total"} <= set(families)
+    assert {"aot_export", "aot_restore", "aot_fallback"} <= emitted
     for kind, keys, spread, where in events:
         missing = set(catalog.EVENTS[kind]) - keys
         assert spread or not missing, f"{where}: {kind} lacks {sorted(missing)}"
