@@ -33,6 +33,13 @@ NaN flag is read once, after the loop. The grower carries a leading fit axis
 folds share one histogram launch — where the JAX package ``vmap``s the folds
 and so keeps its Pallas kernel off them.
 
+Each layer boundary is an ``obs.spans.region`` (free with no tracer
+installed; it launches nothing and never waits): ``gbdt.fit`` per call,
+``gbdt.binning`` (the bins, their device copy and, at depth 1, the per-bin
+row counts), and per stage ``gbdt.stage`` (``t``) holding ``gbdt.grad``,
+``gbdt.hist``, ``gbdt.split``, ``gbdt.route`` (each per ``level``), the
+grower's ``gbdt.leaf_sums`` and ``gbdt.update``.
+
 ``fit_resumable`` runs the same stage loops in chunks, checkpointing the
 boosting carry (``persist.checkpoint.save_step``) after each, and
 ``scaled_member_cfg`` is the stacking member's splitter switch at scale.
@@ -50,6 +57,7 @@ import torch
 from machine_learning_replications_tpu_torch.config import GBDTConfig
 from machine_learning_replications_tpu_torch.device import float_dtype, resolve_device, to_host
 from machine_learning_replications_tpu_torch.models.tree import TreeEnsembleParams
+from machine_learning_replications_tpu_torch.obs.spans import region
 from machine_learning_replications_tpu_torch.ops import binning, histogram
 
 # 'hist'-mode fits at or above this row count quantise on device (and at
@@ -195,40 +203,44 @@ def fit(
 
     The fit runs in ``float_dtype(X)``.
     """
-    dev = resolve_device(device)
-    backend = resolve_backend(cfg, dev)  # validate eagerly
-    bin_budget(cfg)                      # validates the splitter
-    n = X.shape[0]
-    if (cfg.max_depth == 1 and cfg.n_estimators == 1 and uses_fused_hist1(cfg, n)
-            and isinstance(X, np.ndarray) and isinstance(y, np.ndarray)):
-        return _fit_stump_host(X, y, cfg, dev)
-    if uses_fused_hist1(cfg, n):
-        return _fit_fused(X, y, cfg, backend, dev)
-    Xt = torch.as_tensor(X)
-    dtype = float_dtype(Xt)
-    yj = torch.as_tensor(y, device=dev)
-    bins = default_bins(Xt, cfg, dev)
-    binned = _device_bins(bins.binned, bins.max_bins, dev)
-    thresholds = torch.as_tensor(bins.thresholds, dtype=dtype, device=dev)
-    stages = dict(
-        n_stages=cfg.n_estimators,
-        learning_rate=cfg.learning_rate,
-        min_samples_split=cfg.min_samples_split,
-        min_samples_leaf=cfg.min_samples_leaf,
-        backend=backend,
-    )
-    if cfg.max_depth == 1:
-        feature, threshold, value, is_split, deviance, _ = _fit_stumps(
-            binned, thresholds, yj.to(dtype), **stages)
-    else:
-        feature, threshold, value, is_split, deviance = _fit_binned(
-            binned, thresholds, yj, depth=cfg.max_depth, max_bins=bins.max_bins, **stages)
-    params = forest_to_params(
-        feature, threshold, value, is_split,
-        init_raw=_prior_log_odds(yj.to(dtype)), learning_rate=cfg.learning_rate,
-        max_depth=cfg.max_depth,
-    )
-    return params, {"train_deviance": deviance.cpu().numpy()}
+    with region("gbdt.fit"):
+        dev = resolve_device(device)
+        backend = resolve_backend(cfg, dev)  # validate eagerly
+        bin_budget(cfg)                      # validates the splitter
+        n = X.shape[0]
+        if (cfg.max_depth == 1 and cfg.n_estimators == 1 and uses_fused_hist1(cfg, n)
+                and isinstance(X, np.ndarray) and isinstance(y, np.ndarray)):
+            return _fit_stump_host(X, y, cfg, dev)
+        if uses_fused_hist1(cfg, n):
+            return _fit_fused(X, y, cfg, backend, dev)
+        Xt = torch.as_tensor(X)
+        dtype = float_dtype(Xt)
+        yj = torch.as_tensor(y, device=dev)
+        with region("gbdt.binning"):
+            bins = default_bins(Xt, cfg, dev)
+            binned = _device_bins(bins.binned, bins.max_bins, dev)
+            thresholds = torch.as_tensor(bins.thresholds, dtype=dtype, device=dev)
+            if cfg.max_depth == 1:
+                counts = _stump_counts(binned, thresholds)
+        stages = dict(
+            n_stages=cfg.n_estimators,
+            learning_rate=cfg.learning_rate,
+            min_samples_split=cfg.min_samples_split,
+            min_samples_leaf=cfg.min_samples_leaf,
+            backend=backend,
+        )
+        if cfg.max_depth == 1:
+            feature, threshold, value, is_split, deviance, _ = _fit_stumps(
+                binned, thresholds, counts, yj.to(dtype), **stages)
+        else:
+            feature, threshold, value, is_split, deviance = _fit_binned(
+                binned, thresholds, yj, depth=cfg.max_depth, max_bins=bins.max_bins, **stages)
+        params = forest_to_params(
+            feature, threshold, value, is_split,
+            init_raw=_prior_log_odds(yj.to(dtype)), learning_rate=cfg.learning_rate,
+            max_depth=cfg.max_depth,
+        )
+        return params, {"train_deviance": deviance.cpu().numpy()}
 
 
 def _fit_fused(X, y, cfg: GBDTConfig, backend: str, dev: torch.device):
@@ -236,13 +248,15 @@ def _fit_fused(X, y, cfg: GBDTConfig, backend: str, dev: torch.device):
     device (u8 ids up to 256 bins), then ``_fit_stumps``. The binning NaN
     flag is read once, after every stage is queued."""
     Xj = torch.as_tensor(X, device=dev)
-    binned, mids, nan_flag = binning.device_binning_core(Xj, cfg.n_bins)
-    if cfg.n_bins <= 256:
-        # the only O(n·F) array each stage reads — keep it one byte wide
-        binned = binned.to(torch.uint8)
-    thresholds = mids.T.contiguous()                         # [F, B-1]
+    with region("gbdt.binning"):
+        binned, mids, nan_flag = binning.device_binning_core(Xj, cfg.n_bins)
+        if cfg.n_bins <= 256:
+            # the only O(n·F) array each stage reads — keep it one byte wide
+            binned = binned.to(torch.uint8)
+        thresholds = mids.T.contiguous()                     # [F, B-1]
+        counts = _stump_counts(binned, thresholds)
     feature, threshold, value, is_split, deviance, f0 = _fit_stumps(
-        binned, thresholds, torch.as_tensor(y, device=dev).to(thresholds.dtype),
+        binned, thresholds, counts, torch.as_tensor(y, device=dev).to(thresholds.dtype),
         n_stages=cfg.n_estimators,
         learning_rate=cfg.learning_rate,
         min_samples_split=cfg.min_samples_split,
@@ -299,9 +313,10 @@ def fit_resumable(
                 min_samples_leaf=cfg.min_samples_leaf, backend=backend)
     if cfg.max_depth == 1:
         carry = _stump_init(ys, _prior_log_odds(ys), n_stages)
+        counts = _stump_counts(binned, thresholds)
 
         def run(carry, s, e):
-            return _run_stumps(binned, thresholds, ys, carry, s, e, **opts)
+            return _run_stumps(binned, thresholds, counts, ys, carry, s, e, **opts)
     else:
         carry = _binned_init(thresholds, yj, n_stages, cfg.max_depth)
 
@@ -385,9 +400,16 @@ def _left_counts(binned: torch.Tensor, n_bins: int) -> torch.Tensor:
     return torch.cumsum(counts, dim=1)[:, :-1]
 
 
+def _stump_counts(binned: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """``[1, F, B-1]``: ``_left_counts`` in the fit's dtype, as the depth-1
+    stage loop reads them; part of a depth-1 fit's binning."""
+    return _left_counts(binned, thresholds.shape[1] + 1).to(thresholds.dtype)[None]
+
+
 def _fit_stumps(
     binned: torch.Tensor,      # [n, F] integer bin ids (uint8, or int32 past 256 bins)
     thresholds: torch.Tensor,  # [F, B-1], +inf past a feature's last boundary
+    counts: torch.Tensor,      # [1, F, B-1] rows with bin <= b (_stump_counts)
     ys: torch.Tensor,          # [n] labels in the working dtype
     *,
     n_stages: int,
@@ -401,7 +423,7 @@ def _fit_stumps(
     ``[n_stages, 3]`` heap layout, all on ``binned``'s device."""
     f0 = _prior_log_odds(ys)
     carry = _run_stumps(
-        binned, thresholds, ys, _stump_init(ys, f0, n_stages), 0, n_stages,
+        binned, thresholds, counts, ys, _stump_init(ys, f0, n_stages), 0, n_stages,
         learning_rate=learning_rate, min_samples_split=min_samples_split,
         min_samples_leaf=min_samples_leaf, backend=backend,
     )
@@ -425,6 +447,7 @@ def _stump_init(ys: torch.Tensor, f0: torch.Tensor, n_stages: int):
 def _run_stumps(
     binned: torch.Tensor,
     thresholds: torch.Tensor,
+    CL: torch.Tensor,
     ys: torch.Tensor,
     carry,
     start: int,
@@ -436,8 +459,9 @@ def _run_stumps(
     backend: str,
 ):
     """Stages ``[start, stop)`` of a depth-1 fit from ``carry``
-    (``_stump_init``'s layout); the forest and deviance tensors are written
-    in place and the new carry is returned.
+    (``_stump_init``'s layout) and the per-bin row counts ``CL``
+    (``_stump_counts``); the forest and deviance tensors are written in
+    place and the new carry is returned.
 
     The one stage loop of both depth-1 device regimes: the fused fit (device
     quantile bins, u8) and the host-binned fit (the JAX package's
@@ -455,7 +479,6 @@ def _run_stumps(
     n_bins = thresholds.shape[1] + 1
     dtype = thresholds.dtype
     dev = binned.device
-    CL = _left_counts(binned, n_bins).to(dtype)[None]        # [1, F, B-1]
     CT = torch.tensor([n], dtype=dtype, device=dev)
     Bm1 = n_bins - 1
 
@@ -466,40 +489,45 @@ def _run_stumps(
     feat_mask = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
 
     for t in range(start, stop):
-        p = torch.sigmoid(raw)
-        g = ys - p
-        h = p * (1.0 - p)
-        hist = histogram.stump_histograms(binned, g, h, n_bins, backend=backend)  # [2, F, B]
-        GL = torch.cumsum(hist[0], dim=1)[:, :-1][None]      # [1, F, B-1]
-        HL = torch.cumsum(hist[1], dim=1)[:, :-1]            # [F, B-1]
-        GT = torch.sum(g)
-        HT = torch.sum(h)
-        sp = histogram.select_splits(
-            GL, CL, GT[None], CT, torch.sum(g * g)[None], thresholds,
-            min_samples_split, min_samples_leaf,
-        )
-        do = sp.do_split                                     # [1]
-        fstar, bstar = sp.feature, sp.boundary               # [1] each
-        best = fstar * Bm1 + bstar
-        num_l = GL.reshape(-1).index_select(0, best)
-        den_l = HL.reshape(-1).index_select(0, best)
-        num_r, den_r = GT - num_l, HT - den_l
+        with region("gbdt.stage", t=t):
+            with region("gbdt.grad"):
+                p = torch.sigmoid(raw)
+                g = ys - p
+                h = p * (1.0 - p)
+            with region("gbdt.hist", level=0):
+                hist = histogram.stump_histograms(binned, g, h, n_bins, backend=backend)
+            with region("gbdt.split", level=0):
+                GL = torch.cumsum(hist[0], dim=1)[:, :-1][None]  # [1, F, B-1]
+                HL = torch.cumsum(hist[1], dim=1)[:, :-1]        # [F, B-1]
+                GT = torch.sum(g)
+                HT = torch.sum(h)
+                sp = histogram.select_splits(
+                    GL, CL, GT[None], CT, torch.sum(g * g)[None], thresholds,
+                    min_samples_split, min_samples_leaf,
+                )
+                do = sp.do_split                                 # [1]
+                fstar, bstar = sp.feature, sp.boundary           # [1] each
+                best = fstar * Bm1 + bstar
+                num_l = GL.reshape(-1).index_select(0, best)
+                den_l = HL.reshape(-1).index_select(0, best)
+                num_r, den_r = GT - num_l, HT - den_l
 
-        newton = histogram.newton_leaf_value
-        v_root = newton(GT, HT)[None]  # unsplit stage: single-leaf Newton value
-        v_l, v_r = newton(num_l, den_l), newton(num_r, den_r)
+                newton = histogram.newton_leaf_value
+                v_root = newton(GT, HT)[None]  # unsplit stage: single-leaf Newton value
+                v_l, v_r = newton(num_l, den_l), newton(num_r, den_r)
 
-        split_bins = binned.index_select(1, fstar)[:, 0]    # [n]
-        go_left = split_bins.long() <= bstar
-        contrib = torch.where(do, torch.where(go_left, v_l, v_r), v_root)
-        raw = raw + learning_rate * contrib
-        devs[t] = -2.0 * torch.mean(ys * raw - torch.logaddexp(zero, raw))
-
-        feats[t] = torch.where(do, fstar, 0).to(torch.int32) * feat_mask
-        thrs[t] = torch.cat([torch.where(do, sp.threshold, inf), inf, inf])
-        vals[t] = torch.cat([torch.where(do, zero, v_root), torch.where(do, v_l, zero),
-                             torch.where(do, v_r, zero)])
-        splits[t] = torch.cat([do, no_split])
+                feats[t] = torch.where(do, fstar, 0).to(torch.int32) * feat_mask
+                thrs[t] = torch.cat([torch.where(do, sp.threshold, inf), inf, inf])
+                vals[t] = torch.cat([torch.where(do, zero, v_root), torch.where(do, v_l, zero),
+                                     torch.where(do, v_r, zero)])
+                splits[t] = torch.cat([do, no_split])
+            with region("gbdt.route", level=0):
+                split_bins = binned.index_select(1, fstar)[:, 0]    # [n]
+                go_left = split_bins.long() <= bstar
+            with region("gbdt.update"):
+                contrib = torch.where(do, torch.where(go_left, v_l, v_r), v_root)
+                raw = raw + learning_rate * contrib
+                devs[t] = -2.0 * torch.mean(ys * raw - torch.logaddexp(zero, raw))
 
     return raw, feats, thrs, vals, splits, devs
 
@@ -785,25 +813,31 @@ def make_tree_grower(
         for level in range(depth):
             base = 2**level - 1
             K = 2**level
-            node_local = torch.where(node >= base, node - base, -1)
-            hl = hist_fn(binned, node_local, g, h, K, max_bins)
-            hists = histogram.NodeHistograms(*(reduce_fn(a) for a in hl))
-            sp = histogram.best_splits(hists, thresholds, min_samples_split, min_samples_leaf)
-            feat_t[:, base:base + K] = torch.where(sp.do_split, sp.feature, 0).to(torch.int32)
-            thr_t[:, base:base + K] = torch.where(sp.do_split, sp.threshold, inf).to(dtype)
-            split_t[:, base:base + K] = sp.do_split
-            # Route rows of split nodes to their children; others park.
-            kk = torch.clamp_min(node_local, 0).long()  # gather's index dtype
-            splits_here = (node_local >= 0) & torch.gather(sp.do_split, 1, kk)
-            col = torch.take(binned, row_base + torch.gather(sp.feature, 1, kk))
-            go_left = col <= torch.gather(sp.boundary, 1, kk)
-            child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
-            node = torch.where(splits_here, child, node)
-        # Newton leaf values over final row positions (inactive rows → dump
-        # segment NN of their fit, which is dropped)
-        fit_base = torch.arange(k, device=dev)[:, None] * (NN + 1)
-        seg = (torch.where(node >= 0, node, NN) + fit_base).reshape(-1)
-        val_t = histogram.newton_leaf_value(leaf_sums(g, seg, k), leaf_sums(h, seg, k))
+            with region("gbdt.hist", level=level):
+                node_local = torch.where(node >= base, node - base, -1)
+                hl = hist_fn(binned, node_local, g, h, K, max_bins)
+                hists = histogram.NodeHistograms(*(reduce_fn(a) for a in hl))
+            with region("gbdt.split", level=level):
+                sp = histogram.best_splits(hists, thresholds, min_samples_split,
+                                           min_samples_leaf)
+                feat_t[:, base:base + K] = torch.where(sp.do_split, sp.feature,
+                                                       0).to(torch.int32)
+                thr_t[:, base:base + K] = torch.where(sp.do_split, sp.threshold, inf).to(dtype)
+                split_t[:, base:base + K] = sp.do_split
+            with region("gbdt.route", level=level):
+                # Route rows of split nodes to their children; others park.
+                kk = torch.clamp_min(node_local, 0).long()  # gather's index dtype
+                splits_here = (node_local >= 0) & torch.gather(sp.do_split, 1, kk)
+                col = torch.take(binned, row_base + torch.gather(sp.feature, 1, kk))
+                go_left = col <= torch.gather(sp.boundary, 1, kk)
+                child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
+                node = torch.where(splits_here, child, node)
+        with region("gbdt.leaf_sums"):
+            # Newton leaf values over final row positions (inactive rows →
+            # dump segment NN of their fit, which is dropped)
+            fit_base = torch.arange(k, device=dev)[:, None] * (NN + 1)
+            seg = (torch.where(node >= 0, node, NN) + fit_base).reshape(-1)
+            val_t = histogram.newton_leaf_value(leaf_sums(g, seg, k), leaf_sums(h, seg, k))
         return feat_t, thr_t, val_t, split_t, node
 
     return grow_tree
@@ -883,13 +917,17 @@ def _run_binned(
     raw, feats, thrs, vals, splits, devs = carry
     zero = torch.zeros((), dtype=dtype, device=yf.device)
     for t in range(start, stop):
-        p = torch.sigmoid(raw)
-        g = yf - p          # residual (negative gradient of deviance)
-        h = p * (1.0 - p)   # Newton denominator terms
-        feat_t, thr_t, val_t, split_t, node = grow_tree(g[None], h[None])
-        raw = raw + learning_rate * val_t[0][node[0].long()]
-        devs[t] = -2.0 * torch.mean(yf * raw - torch.logaddexp(zero, raw))
-        feats[t], thrs[t], vals[t], splits[t] = feat_t[0], thr_t[0], val_t[0], split_t[0]
+        with region("gbdt.stage", t=t):
+            with region("gbdt.grad"):
+                p = torch.sigmoid(raw)
+                g = yf - p          # residual (negative gradient of deviance)
+                h = p * (1.0 - p)   # Newton denominator terms
+            feat_t, thr_t, val_t, split_t, node = grow_tree(g[None], h[None])
+            with region("gbdt.update"):
+                raw = raw + learning_rate * val_t[0][node[0].long()]
+                devs[t] = -2.0 * torch.mean(yf * raw - torch.logaddexp(zero, raw))
+                feats[t], thrs[t], vals[t], splits[t] = (feat_t[0], thr_t[0], val_t[0],
+                                                         split_t[0])
     return raw, feats, thrs, vals, splits, devs
 
 
@@ -931,10 +969,15 @@ def _run_binned_folds(
     vals = torch.zeros((k, n_stages, NN), dtype=dtype, device=dev)
     splits = torch.zeros((k, n_stages, NN), dtype=torch.bool, device=dev)
     for t in range(n_stages):
-        p = torch.sigmoid(raw)
-        g = (yf - p) * w
-        h = p * (1.0 - p) * w
-        feat_t, thr_t, val_t, split_t, node = grow_tree(g, h)
-        raw = raw + learning_rate * torch.gather(val_t, 1, torch.clamp_min(node, 0).long()) * w
-        feats[:, t], thrs[:, t], vals[:, t], splits[:, t] = feat_t, thr_t, val_t, split_t
+        with region("gbdt.stage", t=t):
+            with region("gbdt.grad"):
+                p = torch.sigmoid(raw)
+                g = (yf - p) * w
+                h = p * (1.0 - p) * w
+            feat_t, thr_t, val_t, split_t, node = grow_tree(g, h)
+            with region("gbdt.update"):
+                raw = raw + learning_rate * torch.gather(
+                    val_t, 1, torch.clamp_min(node, 0).long()) * w
+                feats[:, t], thrs[:, t], vals[:, t], splits[:, t] = (feat_t, thr_t, val_t,
+                                                                     split_t)
     return feats, thrs, vals, splits, f0

@@ -17,11 +17,17 @@ families, and the instrumented call sites feed them:
                                         wrapper (``ops.cuda_histogram``)
   ``torch_transfer_bytes_total{direction=...}``
                                         counter — host/device bytes moved
-                                        through ``device_put`` / ``device_get``
-                                        (checkpoint loads h2d, ``device.to_host``
-                                        d2h) and the bulk scorer's pinned
-                                        copies (``score.pipeline.ChunkScorer``)
-                                        only. The models' own
+                                        at these sites only: h2d through
+                                        ``device_put`` (checkpoint loads,
+                                        the serving engine's AOT copy-in),
+                                        the serving engine's graph copy-in,
+                                        the bulk scorer's pinned copies
+                                        (``score.pipeline.ChunkScorer``);
+                                        d2h through ``device_get``, so every
+                                        ``device.to_host`` of a card tensor
+                                        (the engine's copy-out among them),
+                                        and the bulk scorer's pinned copies.
+                                        The models' own
                                         ``torch.as_tensor(..., device=)``
                                         uploads are NOT counted, so this is
                                         a subset of the traffic, not a total
@@ -67,9 +73,12 @@ def _declare(registry: MetricsRegistry) -> dict[str, Any]:
         ),
         "transfer_bytes": registry.counter(
             "torch_transfer_bytes_total",
-            "Host/device bytes through obs.torchmon.device_put / device_get "
-            "(checkpoint loads h2d, device.to_host d2h) and the bulk scorer's "
-            "pinned copies only; the models' own uploads are not counted.",
+            "Host/device bytes at these sites only: h2d through "
+            "obs.torchmon.device_put (checkpoint loads, the serving engine's AOT "
+            "copy-in), the serving engine's graph copy-in and the bulk scorer's "
+            "pinned copies; d2h through device_get (every device.to_host of a card "
+            "tensor, the engine's copy-out among them) and the bulk scorer's pinned "
+            "copies. The models' own uploads are not counted.",
             labels=("direction",),
         ),
     }

@@ -47,6 +47,15 @@ Padding is row replication (edge mode); every family is a per-row map, so
 pad rows cannot perturb real rows, and only real rows reach the quality
 monitor.
 
+**Spans** (``obs.spans.region``: free with no tracer installed, and never a
+wait): ``engine.predict`` per call; per chunk ``engine.prep`` (``chunk``:
+the host rows, the pad and the NaN test); then on the graph path
+``engine.copy_in``, ``engine.replay`` (the ``graph.replay()`` call) and
+``engine.copy_out`` (the host reads, which hold the wait for the replay),
+and on the eager and AOT-restored paths one ``engine.forward``. The copies
+of the graph and AOT paths count in ``torch_transfer_bytes_total`` (h2d at
+the copy-in, d2h through ``device.to_host``).
+
 The engine serves the three families of ``cli predict``:
 ``stacking.StackingParams`` (rows are the 17-variable contract),
 ``tree.TreeEnsembleParams`` (``sweep --save``) and
@@ -68,6 +77,7 @@ import torch
 from machine_learning_replications_tpu_torch.device import resolve_device, to_host
 from machine_learning_replications_tpu_torch.obs import journal, torchmon
 from machine_learning_replications_tpu_torch.obs.registry import REGISTRY
+from machine_learning_replications_tpu_torch.obs.spans import region
 from machine_learning_replications_tpu_torch.persist.aot import GraphInputs, outputs_to_step
 from machine_learning_replications_tpu_torch.resilience import faults
 
@@ -406,22 +416,23 @@ class BucketedPredictEngine:
         b = Xb.shape[0]
         restored = self._aot_execs.get(b)
         if self._stream is None:
-            if restored is not None:
-                outs = restored(torch.as_tensor(Xb).to(self._in_dtype))
-            else:
-                if b not in self.trace_counts:
-                    self._note_trace(b)
-                outs = self._forward(torch.as_tensor(Xb).to(self._in_dtype))
-            return tuple(
-                None if t is None or (i and not feed) else to_host(t)
-                for i, t in enumerate(outs)
-            )
+            with region("engine.forward"):
+                if restored is not None:
+                    outs = restored(torch.as_tensor(Xb).to(self._in_dtype))
+                else:
+                    if b not in self.trace_counts:
+                        self._note_trace(b)
+                    outs = self._forward(torch.as_tensor(Xb).to(self._in_dtype))
+                return tuple(
+                    None if t is None or (i and not feed) else to_host(t)
+                    for i, t in enumerate(outs)
+                )
         if restored is not None:
-            with self._lock:
+            with self._lock, region("engine.forward"):
                 self._stream.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(self._stream):
                     p1, members, qrows = restored(
-                        torch.from_numpy(Xb).to(self.device).to(self._in_dtype))
+                        torchmon.device_put(Xb, self.device).to(self._in_dtype))
                     p1 = to_host(p1)
                     members = to_host(members) if feed and members is not None else None
                     qrows = to_host(qrows) if feed else None
@@ -431,13 +442,18 @@ class BucketedPredictEngine:
             if g is None:
                 g = self._capture(b)
             with torch.cuda.stream(self._stream):
-                g.static_in.copy_(torch.from_numpy(Xb).to(self._in_dtype))
-                g.graph.replay()
+                with region("engine.copy_in"):
+                    g.static_in.copy_(torch.from_numpy(Xb).to(self._in_dtype))
+                    torchmon.record_transfer(
+                        "h2d", g.static_in.numel() * g.static_in.element_size())
+                with region("engine.replay"):
+                    g.graph.replay()
                 # Copied out (and waited for) before the lock is released:
                 # the next replay overwrites the static outputs.
-                p1 = to_host(g.p1)
-                members = to_host(g.members) if feed and g.members is not None else None
-                qrows = to_host(g.qrows) if feed else None
+                with region("engine.copy_out"):
+                    p1 = to_host(g.p1)
+                    members = to_host(g.members) if feed and g.members is not None else None
+                    qrows = to_host(g.qrows) if feed else None
         return p1, members, qrows
 
     # -- the engine interface ------------------------------------------------
@@ -478,72 +494,78 @@ class BucketedPredictEngine:
         top-bucket chunks, mid-size remainders split into best-fit
         sub-batches. Every chunk is a ladder bucket, so the number of
         captures stays bounded whatever the caller hands in."""
-        X = np.asarray(X, np.float64)
-        if X.ndim != 2 or X.shape[1] != self.n_features:
-            raise ValueError(
-                f"expected [n, {self.n_features}] contract rows, got "
-                f"{X.shape}"
-            )
-        n = X.shape[0]
-        if n == 0:
-            return np.empty((0,), np.float64)
-        # Faultpoint: the device-compute injection site. A raise here is a
-        # failing compute (feeds the supervisor's breaker streak); a delay
-        # is a wedged device. Free when nothing is armed.
-        faults.fire("engine.compute")
-        feed = self.quality is not None
-        probs_parts: list[np.ndarray] = []
-        member_parts: list[np.ndarray] | None = [] if feed else None
-        qrow_parts: list[np.ndarray] = []
-        off = 0
-        for b in self.plan_batch(n):
-            take = min(b, n - off)
-            Xc = X[off:off + take]
-            if take < b:
-                Xc = np.pad(Xc, ((0, b - take), (0, 0)), mode="edge")
-            if self.family == "pipeline" and np.isnan(Xc).any():
-                p1, members, qrows = (
-                    None if t is None else to_host(t) for t in self._eager_nan_route(Xc))
-            else:
-                p1, members, qrows = self._run_bucket(self._host_rows(Xc), feed)
-            probs_parts.append(np.asarray(p1, np.float64)[:take])
-            if feed:
-                # Pad rows sliced off BEFORE anything downstream sees them:
-                # edge-replicated rows would double-weight the last real
-                # patient in the drift window.
-                qrow_parts.append(np.asarray(qrows)[:take])
-                if members is None:
-                    member_parts = None
-                elif member_parts is not None:
-                    member_parts.append(np.asarray(members, np.float64)[:take])
-            off += take
-        probs = (
-            probs_parts[0] if len(probs_parts) == 1
-            else np.concatenate(probs_parts)
-        )
-        if self.quality is not None:
-            try:
-                self.quality.observe_batch(
-                    qrow_parts[0] if len(qrow_parts) == 1
-                    else np.concatenate(qrow_parts),
-                    probs,
-                    None if member_parts is None
-                    else (
-                        member_parts[0] if len(member_parts) == 1
-                        else np.concatenate(member_parts)
-                    ),
+        with region("engine.predict"):
+            X = np.asarray(X, np.float64)
+            if X.ndim != 2 or X.shape[1] != self.n_features:
+                raise ValueError(
+                    f"expected [n, {self.n_features}] contract rows, got "
+                    f"{X.shape}"
                 )
-            except Exception as exc:
-                # Telemetry must never take serving down: the prediction
-                # already succeeded, so a monitor failure quarantines the
-                # feed — journaled once — instead of failing every batch.
-                msg = f"{type(exc).__name__}: {exc}"
-                journal.event("quality_feed_disabled", error=msg)
-                disable = getattr(self.quality, "disable", None)
-                if disable is not None:
-                    disable(f"feed quarantined: {msg}")
-                self.quality = None
-        return probs
+            n = X.shape[0]
+            if n == 0:
+                return np.empty((0,), np.float64)
+            # Faultpoint: the device-compute injection site. A raise here is a
+            # failing compute (feeds the supervisor's breaker streak); a delay
+            # is a wedged device. Free when nothing is armed.
+            faults.fire("engine.compute")
+            feed = self.quality is not None
+            probs_parts: list[np.ndarray] = []
+            member_parts: list[np.ndarray] | None = [] if feed else None
+            qrow_parts: list[np.ndarray] = []
+            off = 0
+            for chunk, b in enumerate(self.plan_batch(n)):
+                with region("engine.prep", chunk=chunk):
+                    take = min(b, n - off)
+                    Xc = X[off:off + take]
+                    if take < b:
+                        Xc = np.pad(Xc, ((0, b - take), (0, 0)), mode="edge")
+                    eager = self.family == "pipeline" and np.isnan(Xc).any()
+                    if not eager:
+                        Xc = self._host_rows(Xc)
+                if eager:
+                    with region("engine.forward"):
+                        p1, members, qrows = (
+                            None if t is None else to_host(t) for t in self._eager_nan_route(Xc))
+                else:
+                    p1, members, qrows = self._run_bucket(Xc, feed)
+                probs_parts.append(np.asarray(p1, np.float64)[:take])
+                if feed:
+                    # Pad rows sliced off BEFORE anything downstream sees them:
+                    # edge-replicated rows would double-weight the last real
+                    # patient in the drift window.
+                    qrow_parts.append(np.asarray(qrows)[:take])
+                    if members is None:
+                        member_parts = None
+                    elif member_parts is not None:
+                        member_parts.append(np.asarray(members, np.float64)[:take])
+                off += take
+            probs = (
+                probs_parts[0] if len(probs_parts) == 1
+                else np.concatenate(probs_parts)
+            )
+            if self.quality is not None:
+                try:
+                    self.quality.observe_batch(
+                        qrow_parts[0] if len(qrow_parts) == 1
+                        else np.concatenate(qrow_parts),
+                        probs,
+                        None if member_parts is None
+                        else (
+                            member_parts[0] if len(member_parts) == 1
+                            else np.concatenate(member_parts)
+                        ),
+                    )
+                except Exception as exc:
+                    # Telemetry must never take serving down: the prediction
+                    # already succeeded, so a monitor failure quarantines the
+                    # feed — journaled once — instead of failing every batch.
+                    msg = f"{type(exc).__name__}: {exc}"
+                    journal.event("quality_feed_disabled", error=msg)
+                    disable = getattr(self.quality, "disable", None)
+                    if disable is not None:
+                        disable(f"feed quarantined: {msg}")
+                    self.quality = None
+            return probs
 
     def warmup(self, say=None) -> dict[int, float]:
         """Make every ladder bucket hot up front (example-patient rows):

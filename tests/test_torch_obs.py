@@ -177,34 +177,6 @@ def test_cuda_devices_of_a_registered_tree():
     assert found == set()
 
 
-def test_phase_timer_is_a_span_adapter():
-    from machine_learning_replications_tpu_torch.utils.trace import PhaseTimer
-
-    tr = spans.Tracer()
-    spans.set_tracer(tr)
-    try:
-        t = PhaseTimer()
-        with t.phase("fit"):
-            time.sleep(0.001)
-        with t.phase("fit") as ph:
-            ph.block(torch.ones(3))
-    finally:
-        spans.set_tracer(None)
-    assert t.counts == {"fit": 2}
-    assert t.seconds["fit"] > 0.0 and "fit" in t.report()
-    assert [e["name"] for e in _x_events(tr.export())] == ["fit", "fit"]
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    from machine_learning_replications_tpu_torch.utils.trace import device_trace
-
-    with device_trace(str(tmp_path / "prof")):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    with open(tmp_path / "prof" / "trace.json") as f:
-        doc = json.load(f)
-    assert any("mm" in str(e.get("name", "")) for e in doc["traceEvents"])
-
-
 # ---------------------------------------------------------------------------
 # registry: the JAX registry's exposition, byte for byte
 # ---------------------------------------------------------------------------
