@@ -13,9 +13,9 @@ per phase:
   build    ``nvcc`` builds the hand-written histogram kernel from the
            sources in the checkout;
   kernels  each entry of the kernel (the fused fit's stump histograms, the
-           grower's node histograms, the general entry) against its plain
-           PyTorch version on the same inputs at the fits' shapes and at
-           edge shapes (tiled shared memory, fold axes with aligned and
+           grower's node histograms and leaf sums, the general entry)
+           against its plain PyTorch version on the same inputs at the
+           fits' shapes and at edge shapes (tiled shared memory, fold axes with aligned and
            unaligned strides, the warp aggregation's best and worst bin
            patterns, ragged row counts, int32 bins, float64, all rows
            inactive), node counts exactly; with its time on the cohort's
@@ -723,6 +723,8 @@ def fit_vs_plain(X17, yf, cfg, dev, counter: str) -> tuple[dict, object, dict]:
     launches = dict(cuda_histogram.LAUNCHES)
     per_fit = cfg.n_estimators * cfg.max_depth
     check(launches[counter] == per_fit, f"one {counter} launch per tree level: {launches}")
+    grown = cfg.n_estimators if cfg.max_depth > 1 else 0
+    check(launches["leaf_sums"] == grown, f"one leaf_sums launch per grown tree: {launches}")
     warm = [fit_timed(Xd, yd, cfg, dev)[2] for _ in range(3)]
     p_fit = tree.predict_proba1(params, Xd).cpu().numpy()
     auc = roc_auc(yf, p_fit)
@@ -2409,8 +2411,9 @@ def phase_fleet(gbdt_params, X17: np.ndarray, seed: int, ready_s: float, keep_di
             done = ljournal[-1]
             check(done["kind"] == "run_done", f"learn run's run_done last: {done}")
             launches = {k: done["torch_kernel_launches_total"].get(k, 0)
-                        for k in ("stump_histograms", "node_histograms")}
-            check(all(launches.values()), f"learn run launched both kernel entries: {launches}")
+                        for k in cuda_histogram.LAUNCHES}
+            check(launches["stump_histograms"] > 0 and launches["node_histograms"] > 0,
+                  f"learn run launched both kernel entries: {launches}")
             # promotion published v2 with its bundle: every replica's deploy
             # restored all 7 device and 2 host buckets from it, 0 fallbacks
             check(aot_mod.load_bundle(model) is not None, "v2 ships an aot bundle")
@@ -2609,7 +2612,7 @@ def check_observed_train(records: list, events: list, launches: dict) -> dict:
     done = records[-1]
     journaled = done["torch_kernel_launches_total"]
     check(done["torch_graph_captures_total"] > 0, f"graph captures in run_done: {done}")
-    check(all(journaled.get(k, 0) == launches[k] for k in ("stump_histograms", "node_histograms")),
+    check(all(journaled.get(k, 0) == launches[k] for k in cuda_histogram.LAUNCHES),
           f"run_done's launches {journaled} equal the in-process fit's {launches}")
     root = next(e for e in events if e["name"] == "train")
     stages = [e for e in events if e["name"].startswith("stage:")]
@@ -2780,6 +2783,52 @@ def phase_rank_kernels(binned, g, h, peaks: dict, seed: int, dev: torch.device) 
     return {"stump_histograms": [stump], "node_histograms": [nodes]}
 
 
+def phase_leaf_kernels(peaks: dict, seed: int, dev: torch.device) -> list:
+    """``leaf_sums_cuda`` (the grower's per-leaf float64 sums of g and h)
+    against its plain version, the float64 ``index_add_`` pair, within 1e-12
+    of each segment's sum of absolute terms, the same bits on a second
+    call, then timed (CUDA events, L2 flushed) beside that pair and the
+    bound: at a depth-3 fit's shape (n = 10M, k = 1, S = 16, float32, rows
+    on the 8 leaves) and the ``train`` route's fold fits' (713 rows, k = 5,
+    float64, depth 3, a fold's test rows parked)."""
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    depth = 3
+    NN = 2 ** (depth + 1) - 1
+    leaves = 2 ** depth
+    out = []
+    for n, k, dtype in ((10_000_000, 1, torch.float32), (713, 5, torch.float64)):
+        node = (leaves - 1 + torch.randint(0, leaves, (k, n), generator=gen, device=dev)).int()
+        if k > 1:
+            test = torch.rand((k, n), generator=gen, device=dev) < 1 / k
+            node = torch.where(test, -1, node)
+        g = (2 * torch.rand((k, n), generator=gen, device=dev) - 1).to(dtype)
+        h = (0.25 * torch.rand((k, n), generator=gen, device=dev)).to(dtype)
+        got = cuda_histogram.leaf_sums_cuda(node, g, h, k, NN)
+        again = cuda_histogram.leaf_sums_cuda(node, g, h, k, NN)
+        want = histogram.leaf_sums(node, g, h, k, NN)
+        mass = histogram.leaf_sums(node, g.abs(), h.abs(), k, NN)
+        torch.cuda.synchronize()
+        err = (got - want)[..., :NN].abs()
+        worst = float((err / mass[..., :NN].clamp_min(1e-300)).max())
+        check(worst <= 1e-12 and bool(torch.equal(got, again)),
+              f"leaf-sum kernel vs the index_add_ pair at n={n}, k={k}: {worst}")
+        item = g.element_size()
+        out.append({
+            "n": n, "k": k, "segs": k * (NN + 1), "vals": str(dtype).replace("torch.", ""),
+            "max_err_over_mass": worst,
+            "ms": timed_ms(lambda: cuda_histogram.leaf_sums_cuda(node, g, h, k, NN), flush),
+            "plain_ms": timed_ms(lambda: histogram.leaf_sums(node, g, h, k, NN), flush),
+            # node, g and h read once, the [2, k, NN + 1] float64 sums written once
+            **bound(k * n * (4 + 2 * item) + 2 * k * (NN + 1) * 8, 2 * int((node >= 0).sum()),
+                    peaks, "float64"),
+            "reps": 30, "l2": "flushed before each call"})
+        del node, g, h, got, again, want, mass
+    del flush
+    emit({"phase": "kernels", "shapes": "leaf_sums", "leaf_sums": out})
+    return out
+
+
 def sharded_fit_timed(mesh, Xd, yd, cfg):
     from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
 
@@ -2841,7 +2890,7 @@ def phase_distributed(X17: np.ndarray, yf: np.ndarray, seed: int, cli_grid: np.n
           "a one-rank world is up")
     out["bringup"] = dict(distributed.BRINGUP)
     check(out["bringup"]["backend"] == "nccl", f"one rank, one card: NCCL {out['bringup']}")
-    launches = {"stump_histograms": 0, "node_histograms": 0}
+    launches = {k: 0 for k in cuda_histogram.LAUNCHES}
     try:
         mesh = make_mesh(1, 1, device=dev)
         for name, cfg, counter in (
@@ -2851,10 +2900,13 @@ def phase_distributed(X17: np.ndarray, yf: np.ndarray, seed: int, cli_grid: np.n
             cuda_histogram.reset_launch_counts()
             params, aux, cold = sharded_fit_timed(mesh, Xd, yd, cfg)
             run = dict(cuda_histogram.LAUNCHES)
+            grown = cfg.n_estimators if cfg.max_depth > 1 else 0
             check(run[counter] == cfg.n_estimators * cfg.max_depth
-                  and sum(run.values()) == run[counter],
-                  f"one {counter} launch per tree level: {run}")
-            launches[counter] += run[counter]
+                  and run["leaf_sums"] == grown
+                  and sum(run.values()) == run[counter] + run["leaf_sums"],
+                  f"one {counter} launch per tree level, one leaf_sums per grown tree: {run}")
+            for k in launches:
+                launches[k] += run[k]
             warm = [sharded_fit_timed(mesh, Xd, yd, cfg)[2] for _ in range(3)]
             pmesh.COLLECTIVES["all_reduce"] = 0
             with pmesh.timed() as ar_seconds:
@@ -3056,7 +3108,7 @@ def phase_dryrun(dev) -> dict:
     lines = graft_entry.dryrun_multichip(DRYRUN_RANKS, timeout_s=DRYRUN_TIMEOUT_S,
                                          stream=sys.stderr)
     out["dryrun_multichip_s"] = time.perf_counter() - t0
-    launches = {"stump_histograms": 0, "node_histograms": 0}
+    launches = {k: 0 for k in cuda_histogram.LAUNCHES}
     ranks = []
     for r in range(DRYRUN_RANKS):
         done = [ln for ln in lines if f" rank {r}] phase " in ln and " done: " in ln]
@@ -3070,10 +3122,10 @@ def phase_dryrun(dev) -> dict:
         check(rep["backend"] == "gloo" and "share 1 card" in rep["reason"]
               and rep["device"].startswith("cuda") and rep["holds_card"],
               f"rank {r} declares gloo and holds the card: {rep}")
-        check(all(rep["launches"].get(k, 0) > 0 for k in launches),
+        check(all(rep["launches"].get(k, 0) > 0 for k in ("stump_histograms", "node_histograms")),
               f"rank {r} launched both kernel entries: {rep['launches']}")
         for k in launches:
-            launches[k] += rep["launches"][k]
+            launches[k] += rep["launches"].get(k, 0)
         ranks.append({**rep, "phase_seconds": phases})
     total = [float(m.group(1)) for m in (re.search(r"dryrun_multichip OK in (\d+\.\d+)s", ln)
                                          for ln in lines) if m]
@@ -3312,6 +3364,7 @@ def main(argv=None) -> int:
     for name, shapes in phase_rank_kernels(binned, g, h, peaks, args.seed, dev).items():
         kern[name]["rank_shapes"] = shapes
     del binned, g, h
+    leaf = phase_leaf_kernels(peaks, args.seed, dev)
     torch.cuda.empty_cache()
 
     # The main path, one phase at a time: counts from 0 before, read after.
@@ -3348,7 +3401,7 @@ def main(argv=None) -> int:
     runs.append(timed("dryrun", phase_dryrun, dev))
     per_fit = timed("train_pipeline", phase_train_pipeline, args.seed, SCALED_ROWS, dev)
     runs.extend(per_fit.values())
-    launches = {name: sum(run[name] for run in runs) for name in kern}
+    launches = {name: sum(run.get(name, 0) for run in runs) for name in (*kern, "leaf_sums")}
     # Each kernel shape a fit_pipeline reaches carries the launches that fit
     # (of that many develop rows) was read to make above.
     for name, k in kern.items():
@@ -3366,7 +3419,10 @@ def main(argv=None) -> int:
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         **{group: [{key: e[key] for key in SHAPE_KEYS if key in e} for e in k[group]]
            for group in ("exact_shapes", "train_shapes", "rank_shapes") if group in k},
-    } for name, k in kern.items()]})
+    } for name, k in kern.items()] + [{
+        "name": "leaf_sums", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": "none (the grower's float64 index_add_ pair)",
+        "launches": launches["leaf_sums"], "shapes": leaf}]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

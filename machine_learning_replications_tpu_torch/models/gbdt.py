@@ -16,8 +16,10 @@ Port of the JAX package's ``models/gbdt.py``. ``fit`` routes as the JAX
   * the level-wise grower (``max_depth >= 2`` in ``fit``, every depth in
     ``fit_folds``): each tree is built level by level from per-(node,
     feature, bin) histograms (``resolve_hist_fn``: the hand-written CUDA node
-    kernel on the card), friedman split selection and Newton leaves, in heap
-    layout (root 0, children 2i+1 / 2i+2; non-split nodes self-loop).
+    kernel on the card), friedman split selection and Newton leaves from
+    float64 leaf sums (``resolve_leaf_fn``: the hand-written leaf-sum kernel
+    on the card), in heap layout (root 0, children 2i+1 / 2i+2; non-split
+    nodes self-loop).
 
 Numerics match sklearn's binomial-deviance GBC as the JAX fit does:
 F₀ = prior log-odds, residual r = y − σ(F), leaves re-valued by the Newton
@@ -141,6 +143,23 @@ def resolve_hist_fn(backend: str, feature_bins: tuple[int, ...] | None = None):
         return node_histograms_cuda
     if backend in ("xla", "matmul"):
         return histogram.node_histograms
+    raise ValueError(f"unknown histogram backend {backend!r}; expected one of "
+                     f"{histogram.BACKENDS}")
+
+
+def resolve_leaf_fn(backend: str):
+    """The grower's leaf sums for a resolved backend name, chosen as
+    ``resolve_hist_fn`` chooses: 'pallas' (or 'auto') →
+    ``cuda_histogram.leaf_sums_cuda`` (the hand leaf-sum kernel on a CUDA
+    tensor, its plain version on a CPU tensor); 'xla' and 'matmul' → the
+    plain ``histogram.leaf_sums`` (two float64 ``index_add_``) on any
+    device."""
+    if backend in ("auto", "pallas"):
+        from machine_learning_replications_tpu_torch.ops.cuda_histogram import leaf_sums_cuda
+
+        return leaf_sums_cuda
+    if backend in ("xla", "matmul"):
+        return histogram.leaf_sums
     raise ValueError(f"unknown histogram backend {backend!r}; expected one of "
                      f"{histogram.BACKENDS}")
 
@@ -771,7 +790,7 @@ def make_tree_grower(
     max_bins: int,
     min_samples_split: int,
     min_samples_leaf: int,
-    hist_fn,
+    backend: str,
     node_init: torch.Tensor | None = None,  # [k, n] int32, −1 ⇒ inactive row
     reduce_fn=lambda a: a,     # cross-shard reduction (a sum over data shards)
 ):
@@ -779,7 +798,9 @@ def make_tree_grower(
     bookkeeping, routing and Newton-leaf math, for the single fit (k = 1)
     and the fold fits alike. A sharded caller would differ only in
     ``reduce_fn`` (histogram and leaf partials summed over shards) and
-    ``node_init`` (padding rows parked at −1).
+    ``node_init`` (padding rows parked at −1). ``backend`` (resolved)
+    picks the node histograms (``resolve_hist_fn``) and the leaf sums
+    (``resolve_leaf_fn``).
 
     Returns ``grow_tree(g, h) -> (feat_t, thr_t, val_t, split_t, node)``:
     for ``[k, n]`` gradients and hessians, k trees as ``[k, NN]`` heap-layout
@@ -796,12 +817,7 @@ def make_tree_grower(
     else:
         row_base = rows * F
     inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
-
-    def leaf_sums(v: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-        # float64 accumulation: a float32 index_add_ over ~1M rows errs ~1e-4
-        out = torch.zeros(k * (NN + 1), dtype=torch.float64, device=dev)
-        out.index_add_(0, seg, v.reshape(-1).double())
-        return reduce_fn(out.reshape(k, NN + 1)[:, :NN].to(dtype))
+    hist_fn, leaf_fn = resolve_hist_fn(backend), resolve_leaf_fn(backend)
 
     def grow_tree(g: torch.Tensor, h: torch.Tensor):
         k = g.shape[0]
@@ -833,11 +849,11 @@ def make_tree_grower(
                 child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
                 node = torch.where(splits_here, child, node)
         with region("gbdt.leaf_sums"):
-            # Newton leaf values over final row positions (inactive rows →
-            # dump segment NN of their fit, which is dropped)
-            fit_base = torch.arange(k, device=dev)[:, None] * (NN + 1)
-            seg = (torch.where(node >= 0, node, NN) + fit_base).reshape(-1)
-            val_t = histogram.newton_leaf_value(leaf_sums(g, seg, k), leaf_sums(h, seg, k))
+            # Newton leaf values over final row positions, from float64 sums
+            # (a float32 index_add_ over ~1M rows errs ~1e-4); segment NN of
+            # each fit, where inactive rows may land, is dropped
+            num, den = (reduce_fn(s[:, :NN].to(dtype)) for s in leaf_fn(node, g, h, k, NN))
+            val_t = histogram.newton_leaf_value(num, den)
         return feat_t, thr_t, val_t, split_t, node
 
     return grow_tree
@@ -912,7 +928,7 @@ def _run_binned(
         depth=depth, max_bins=max_bins,
         min_samples_split=min_samples_split,
         min_samples_leaf=min_samples_leaf,
-        hist_fn=resolve_hist_fn(backend),
+        backend=backend,
     )
     raw, feats, thrs, vals, splits, devs = carry
     zero = torch.zeros((), dtype=dtype, device=yf.device)
@@ -960,7 +976,7 @@ def _run_binned_folds(
         depth=depth, max_bins=max_bins,
         min_samples_split=min_samples_split,
         min_samples_leaf=min_samples_leaf,
-        hist_fn=resolve_hist_fn(backend),
+        backend=backend,
         node_init=torch.where(w > 0, 0, -1).to(torch.int32),
     )
     raw = f0[:, None].expand(k, n).clone()

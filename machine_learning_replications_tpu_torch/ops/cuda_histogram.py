@@ -16,6 +16,11 @@ entry modes that differ only in how a row's statistics are formed:
     forms (g·a, h·a, g²·a, a) with a = [node ≥ 0] and the node's cell offset
     itself, and writes the ``[K, F, B]`` statistics directly.
 
+Beside it, ``leaf_sums_cuda`` launches the grower's leaf-sum reduction
+(the same source, design notes at its ``leaf sums`` section): per fit and
+final node, the float64 sums of g and h, with no atomic, the same bits on
+every call.
+
 A warp takes 32 rows and steps over a tile's features; lanes whose cell is
 equal sum their statistics by shuffles and one lane adds them with one
 shared atomic per statistic. Row blocks are staged into shared memory by
@@ -29,7 +34,8 @@ checkout (git-ignored), named by the source's hash, and ``ctypes`` loads
 it. No PyTorch header is included, so the build takes seconds.
 
 Dispatch: a wrapper given CPU tensors computes the plain PyTorch version
-(``ops.histogram.*_reference``, ``ops.histogram.node_histograms``); given
+(``ops.histogram.*_reference``, ``ops.histogram.node_histograms``,
+``ops.histogram.leaf_sums``); given
 CUDA tensors it launches the kernel or raises. A failed build or launch
 propagates, never falls back. ``LAUNCHES`` counts, per wrapper, the kernel
 launches it made (nothing else), so a run can show that its main path went
@@ -67,8 +73,13 @@ NVCC_FLAGS = (
 STAGES = 2
 BARRIER_BYTES = 16
 BLOCK_ROWS = (1024, 512, 256, 128, 64, 32)
+# The leaf-sum kernel's threads a block and segments a block holds
+# (csrc/histogram.cu: kLeafThreads, kLeafTile).
+LEAF_THREADS = 256
+LEAF_TILE = 16
 
-LAUNCHES = {"stump_histograms": 0, "node_histograms": 0, "stats_histograms": 0}
+LAUNCHES = {"stump_histograms": 0, "node_histograms": 0, "stats_histograms": 0,
+            "leaf_sums": 0}
 build_log: list[str] = []  # nvcc's output (ptxas register/smem report)
 
 _MODES = {"stats": 0, "stump": 1, "node": 2}
@@ -126,6 +137,12 @@ def _library() -> ctypes.CDLL:
         i, i, i, i, p,        # tile features, tile cells, block rows, device, stream
     ]
     lib.histogram_launch.restype = i
+    lib.leaf_sums_launch.argtypes = [
+        p, p, p, i,           # node (int32), g, h, value dtype
+        p, ll, p,             # scratch, its float64 elements, out
+        ll, i, i, i, p,       # n, folds, segs, device, stream
+    ]
+    lib.leaf_sums_launch.restype = i
     lib.histogram_smem_budget.argtypes = [i]
     lib.histogram_smem_budget.restype = i
     lib.histogram_error_string.argtypes = [i]
@@ -313,3 +330,61 @@ def node_histograms_cuda(binned: torch.Tensor, node_local: torch.Tensor, grad: t
     out = _launch("node", binned, node_local, grad.to(dtype), hess.to(dtype), 4, K * B, B,
                   "node_histograms")                          # [k, 4, K, F, B]
     return histogram.NodeHistograms(*(out if node_local.dim() == 2 else out[0]).unbind(-4))
+
+
+def leaf_scratch(k: int, segs: int, dev: torch.device) -> int:
+    """Float64 elements of scratch that suffice for one leaf-sum launch of
+    ``k`` fits of ``segs`` segments on ``dev``, whatever the row count: a
+    ``[2, tile]`` partial for each block of one wave (every block the card's
+    SMs can hold at ``LEAF_THREADS`` threads) or, where there are more
+    (fit, tile) pairs than that, one per pair."""
+    tile = min(segs, LEAF_TILE)
+    props = torch.cuda.get_device_properties(dev)
+    slots = props.multi_processor_count * (props.max_threads_per_multi_processor // LEAF_THREADS)
+    return max(slots, k * -(-segs // tile)) * 2 * tile
+
+
+def leaf_sums_cuda(node: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor, k: int,
+                   n_nodes: int) -> torch.Tensor:
+    """Per-(fit, final node) float64 sums of ``grad`` and ``hess`` → ``[2, k,
+    n_nodes + 1]`` (``histogram.leaf_sums``' contract). ``node`` is the
+    grower's contiguous int32 ``[k, n]``, ``grad`` and ``hess`` contiguous
+    ``[k, n]`` float32 or float64, read as they are. On the card a parked
+    row (node −1) adds nothing, so the dump segment ``n_nodes`` holds 0
+    there (the plain version's holds the parked rows' sums); the caller
+    drops it. One call is one launch of the C entry (a partial and a merge
+    kernel)."""
+    if node.device.type == "cpu":
+        return histogram.leaf_sums(node, grad, hess, k, n_nodes)
+    dev = node.device
+    if node.dtype != torch.int32:
+        raise TypeError(f"node ids must be int32, got {node.dtype}")
+    if grad.dtype not in _VAL_CODES or hess.dtype != grad.dtype:
+        raise TypeError(f"statistics must be float32 or float64, one dtype; got {grad.dtype}, "
+                        f"{hess.dtype}")
+    if node.dim() != 2 or node.shape[0] != k or grad.shape != node.shape or (
+            hess.shape != node.shape):
+        raise ValueError(f"expected node, grad, hess [{k}, n]; got {tuple(node.shape)}, "
+                         f"{tuple(grad.shape)}, {tuple(hess.shape)}")
+    for name, t in (("node", node), ("grad", grad), ("hess", hess)):
+        if t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, node on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n, segs, code = node.shape[1], n_nodes + 1, _VAL_CODES[grad.dtype]
+    lib = _library()
+    with torch.cuda.device(dev):
+        need = leaf_scratch(k, segs, dev)
+        partial = torch.empty(need, dtype=torch.float64, device=dev)
+        out = torch.empty((2, k, segs), dtype=torch.float64, device=dev)
+        err = lib.leaf_sums_launch(
+            node.data_ptr(), grad.data_ptr(), hess.data_ptr(), code,
+            partial.data_ptr(), need, out.data_ptr(),
+            n, k, segs, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"leaf-sum kernel launch failed ({err}): "
+                               f"{lib.histogram_error_string(err).decode()}")
+    LAUNCHES["leaf_sums"] += 1
+    torchmon.record_launch("leaf_sums")
+    return out

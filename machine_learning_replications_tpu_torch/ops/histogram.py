@@ -15,7 +15,9 @@ The plain PyTorch versions of the histogram kernel live here too:
     over flat ``f·B + bin`` ids, the counterpart of the JAX ``'xla'``
     (segment_sum) branch;
   * ``node_histograms`` — its S=4, seg = node·B case for the level-wise
-    grower, the counterpart of the JAX ``node_histograms`` segment_sum.
+    grower, the counterpart of the JAX ``node_histograms`` segment_sum;
+  * ``leaf_sums`` — the grower's per-leaf float64 sums of g and h, the
+    plain version of the leaf-sum kernel.
 
 The CPU tests hold these against JAX; on the card ``chip_smoke.py`` holds
 the CUDA kernel (``ops/cuda_histogram.py``) against them. Both accumulate
@@ -220,6 +222,21 @@ def node_histograms(
     out = stats_histograms_reference(bins, seg, vals, k * K * B)   # [4, F, k·K·B]
     stats = out.reshape(4, F, k, K, B).permute(0, 2, 3, 1, 4)      # [4, k, K, F, B]
     return NodeHistograms(*stats.unbind(0))
+
+
+def leaf_sums(node: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor, k: int,
+              n_nodes: int) -> torch.Tensor:
+    """Per-(fit, final node) float64 sums of ``grad`` and ``hess`` [k, n] →
+    ``[2, k, n_nodes + 1]``: the level-wise grower's Newton-leaf sums, two
+    float64 ``index_add_`` over segment ``fit·(n_nodes + 1) + node``. A
+    parked row (node −1) goes to its fit's dump segment ``n_nodes``, which
+    the caller drops."""
+    fit_base = torch.arange(k, device=node.device)[:, None] * (n_nodes + 1)
+    seg = (torch.where(node >= 0, node, n_nodes) + fit_base).reshape(-1)
+    out = torch.zeros((2, k * (n_nodes + 1)), dtype=torch.float64, device=node.device)
+    out[0].index_add_(0, seg, grad.reshape(-1).double())
+    out[1].index_add_(0, seg, hess.reshape(-1).double())
+    return out.reshape(2, k, n_nodes + 1)
 
 
 def select_splits(

@@ -110,7 +110,7 @@ def _run(
     grow_tree = gbdt.make_tree_grower(
         bl, thresholds, depth=depth, max_bins=max_bins,
         min_samples_split=min_samples_split, min_samples_leaf=min_samples_leaf,
-        hist_fn=gbdt.resolve_hist_fn(backend),
+        backend=backend,
         node_init=torch.where(wl > 0, 0, -1).to(torch.int32)[None],
         reduce_fn=lambda a: psum(a, mesh, DATA_AXIS),
     )

@@ -296,9 +296,55 @@ def test_stats_kernel_general_entry(cuda_device, S):
         _assert_close_to_mass(one, want, mass)
 
 
+def _leaf_inputs(seed, k, n, NN, mix, val_dtype, dev):
+    rng = np.random.default_rng(seed)
+    node = rng.integers(0, NN, size=(k, n))
+    if mix == "parked":
+        node = np.where(rng.random((k, n)) < 0.3, -1, node)
+    elif mix == "one_segment":
+        node = np.full((k, n), NN - 1)
+    g = rng.uniform(-1, 1, size=(k, n)).astype(val_dtype)   # y - p
+    h = rng.uniform(0, 0.25, size=(k, n)).astype(val_dtype)  # p(1 - p)
+    return [torch.as_tensor(a, device=dev) for a in (node.astype(np.int32), g, h)]
+
+
+@pytest.mark.parametrize("mix", ["none_parked", "parked", "one_segment"])
+@pytest.mark.parametrize("n", [713, 50_000, 1_000_003])
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("depth", [1, 2, 3, 6])
+@pytest.mark.parametrize("k", [1, 5])
+def test_leaf_sums_kernel_matches_index_add(cuda_device, k, depth, val_dtype, n, mix):
+    """The leaf-sum kernel against the float64 ``index_add_`` pair on the
+    card, within 1e-12 of each segment's sum of absolute terms (the same
+    float64 sums added in another order); the dump segment holds 0 (a
+    parked row adds nothing); two calls give the same bits (no atomics);
+    one launch a call; a non-int32 or non-contiguous ``node`` raises."""
+    NN = 2 ** (depth + 1) - 1
+    node, g, h = _leaf_inputs(n + 7 * depth + k, k, n, NN, mix, val_dtype, cuda_device)
+    before = cuda_histogram.LAUNCHES["leaf_sums"]
+    got = cuda_histogram.leaf_sums_cuda(node, g, h, k, NN)
+    again = cuda_histogram.leaf_sums_cuda(node, g, h, k, NN)
+    torch.cuda.synchronize()
+    assert cuda_histogram.LAUNCHES["leaf_sums"] == before + 2
+    assert got.shape == (2, k, NN + 1) and got.dtype == torch.float64
+    assert torch.equal(got, again)
+    want = histogram.leaf_sums(node, g, h, k, NN)
+    mass = histogram.leaf_sums(node, g.abs(), h.abs(), k, NN)
+    err = (got - want)[..., :NN].abs()
+    assert bool((err <= 1e-12 * mass[..., :NN]).all()), float(err.max())
+    assert not bool(got[..., NN].any())
+    with pytest.raises(TypeError, match="int32"):
+        cuda_histogram.leaf_sums_cuda(node.long(), g, h, k, NN)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_histogram.leaf_sums_cuda(node[:, ::2], g[:, ::2].contiguous(),
+                                      h[:, ::2].contiguous(), k, NN)
+    assert cuda_histogram.LAUNCHES["leaf_sums"] == before + 2
+
+
 def test_depth3_fit_kernel_matches_plain(cuda_device):
     """The level-wise fit through the node kernel against the same fit
-    through the plain version, at model level; one launch per tree level."""
+    through the plain version, at model level; one node launch per tree
+    level and one leaf-sum launch per tree."""
     X, y, _ = make_cohort(n=1427, seed=2020)
     Xc = torch.as_tensor(X[:, selected_indices()], dtype=torch.float32, device=cuda_device)
     yc = torch.as_tensor(y, dtype=torch.float32, device=cuda_device)
@@ -306,8 +352,10 @@ def test_depth3_fit_kernel_matches_plain(cuda_device):
     cuda_histogram.reset_launch_counts()
     pk, ak = gbdt.fit(Xc, yc, cfg, device=cuda_device)
     assert cuda_histogram.LAUNCHES["node_histograms"] == 8 * 3
+    assert cuda_histogram.LAUNCHES["leaf_sums"] == 8
     pp, ap = gbdt.fit(Xc, yc, dataclasses.replace(cfg, histogram_backend="xla"), device=cuda_device)
     assert cuda_histogram.LAUNCHES["node_histograms"] == 8 * 3
+    assert cuda_histogram.LAUNCHES["leaf_sums"] == 8
     np.testing.assert_allclose(ak["train_deviance"], ap["train_deviance"], rtol=1e-4, atol=0)
     torch.testing.assert_close(tree.predict_proba1(pk, Xc), tree.predict_proba1(pp, Xc),
                                rtol=1e-4, atol=1e-5)
@@ -315,6 +363,7 @@ def test_depth3_fit_kernel_matches_plain(cuda_device):
     cuda_histogram.reset_launch_counts()
     fk = gbdt.fit_folds(Xc, yc, masks, dataclasses.replace(cfg, max_depth=2), device=cuda_device)
     assert cuda_histogram.LAUNCHES["node_histograms"] == 8 * 2
+    assert cuda_histogram.LAUNCHES["leaf_sums"] == 8
     fp = gbdt.fit_folds(Xc, yc, masks, dataclasses.replace(cfg, max_depth=2,
                                                           histogram_backend="xla"),
                         device=cuda_device)
@@ -335,6 +384,7 @@ def test_fused_fit_kernel_matches_plain(cuda_device, monkeypatch):
     cuda_histogram.reset_launch_counts()
     pk, ak = gbdt.fit(Xc, yc, cfg, device=cuda_device)
     assert cuda_histogram.LAUNCHES["stump_histograms"] == 8
+    assert cuda_histogram.LAUNCHES["leaf_sums"] == 0
     pp, ap = gbdt.fit(Xc, yc, dataclasses.replace(cfg, histogram_backend="xla"), device=cuda_device)
     assert cuda_histogram.LAUNCHES["stump_histograms"] == 8
     torch.testing.assert_close(ak["train_deviance"], ap["train_deviance"], rtol=1e-4, atol=0)

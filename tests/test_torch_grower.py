@@ -258,6 +258,30 @@ def test_fit_depth_matches_jax(x17, request, depth, route):
                                np.asarray(jtree.predict_proba1(want, X)), rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("val_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k,depth", [(1, 3), (5, 2)])
+def test_leaf_sums_on_cpu_equal_the_index_add_pair(k, depth, val_dtype):
+    """On a CPU tensor the leaf-sum entry and every backend's leaf sums are
+    the plain version (``histogram.leaf_sums``, the float64 ``index_add_``
+    pair) bit for bit, parked rows included, and no launch count moves."""
+    rng = np.random.default_rng(10 * k + depth)
+    n, NN = 3001, 2 ** (depth + 1) - 1
+    node = torch.as_tensor(np.where(rng.random((k, n)) < 0.3, -1,
+                                    rng.integers(0, NN, size=(k, n))).astype(np.int32))
+    g = torch.as_tensor(rng.normal(size=(k, n)).astype(val_dtype))
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=(k, n)).astype(val_dtype))
+    before = dict(cuda_histogram.LAUNCHES)
+    got = cuda_histogram.leaf_sums_cuda(node, g, h, k, NN)
+    assert cuda_histogram.LAUNCHES == before
+    assert got.shape == (2, k, NN + 1) and got.dtype == torch.float64
+    assert torch.equal(got, histogram.leaf_sums(node, g, h, k, NN))
+    for backend in histogram.BACKENDS:
+        assert torch.equal(gbdt.resolve_leaf_fn(backend)(node, g, h, k, NN), got)
+    assert cuda_histogram.LAUNCHES == before
+    with pytest.raises(ValueError, match="unknown histogram backend"):
+        gbdt.resolve_leaf_fn("cuda")
+
+
 def test_fit_depth_float32_and_backends(x17):
     """The card's working type: float32 X keeps the fit in float32 (u8
     bins) close to the float64 fit; every backend value is the plain
