@@ -27,6 +27,7 @@ METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "torch_kernel_builds_total": ("counter", ()),
     "torch_kernel_build_seconds_total": ("counter", ()),
     "torch_kernel_launches_total": ("counter", ("kernel",)),
+    "torch_kernel_row_passes_total": ("counter", ("kernel",)),
     "torch_transfer_bytes_total": ("counter", ("direction",)),
     # -- obs/quality ---------------------------------------------------------
     "quality_feature_ks": ("gauge", ("feature",)),

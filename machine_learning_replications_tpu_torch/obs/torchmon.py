@@ -15,6 +15,10 @@ families, and the instrumented call sites feed them:
   ``torch_kernel_launches_total{kernel=...}``
                                         counter — hand-kernel launches by
                                         wrapper (``ops.cuda_histogram``)
+  ``torch_kernel_row_passes_total{kernel=...}``
+                                        counter — how often those launches
+                                        walked their rows (one per tile of
+                                        a launch's plan)
   ``torch_transfer_bytes_total{direction=...}``
                                         counter — host/device bytes moved
                                         at these sites only: h2d through
@@ -69,6 +73,12 @@ def _declare(registry: MetricsRegistry) -> dict[str, Any]:
         "kernel_launches": registry.counter(
             "torch_kernel_launches_total",
             "Hand-written kernel launches by wrapper.",
+            labels=("kernel",),
+        ),
+        "kernel_row_passes": registry.counter(
+            "torch_kernel_row_passes_total",
+            "Passes of hand-written kernel launches over their rows (one per tile "
+            "of a launch's plan), by wrapper.",
             labels=("kernel",),
         ),
         "transfer_bytes": registry.counter(
@@ -127,6 +137,10 @@ def record_launch(kernel: str) -> None:
     _inc("kernel_launches", kernel=kernel)
 
 
+def record_row_passes(kernel: str, n: int) -> None:
+    _inc("kernel_row_passes", int(n), kernel=kernel)
+
+
 def record_transfer(direction: str, nbytes: int) -> None:
     """Account ``nbytes`` of host↔device traffic (direction 'h2d'/'d2h')."""
     _inc("transfer_bytes", int(nbytes), direction=direction)
@@ -181,5 +195,6 @@ def totals() -> dict:
         "torch_kernel_builds_total": _value("kernel_builds"),
         "torch_kernel_build_seconds_total": round(float(_value("kernel_build_seconds")), 3),
         "torch_kernel_launches_total": _by_label("kernel_launches"),
+        "torch_kernel_row_passes_total": _by_label("kernel_row_passes"),
         "torch_transfer_bytes_total": _by_label("transfer_bytes"),
     }

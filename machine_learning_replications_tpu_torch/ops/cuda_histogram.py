@@ -39,9 +39,13 @@ Dispatch: a wrapper given CPU tensors computes the plain PyTorch version
 CUDA tensors it launches the kernel or raises. A failed build or launch
 propagates, never falls back. ``LAUNCHES`` counts, per wrapper, the kernel
 launches it made (nothing else), so a run can show that its main path went
-through the kernel; each launch and each build also counts in
-``obs.torchmon``'s ``torch_kernel_launches_total{kernel}`` and
-``torch_kernel_builds_total`` / ``torch_kernel_build_seconds_total``.
+through the kernel; ``ROW_PASSES`` counts, per wrapper, how often those
+launches walked their rows: a histogram launch walks them once per tile of
+its plan (``row_passes``), a leaf-sum launch once per tile of ``LEAF_TILE``
+segments (``leaf_row_passes``). Each launch and each build also counts in
+``obs.torchmon``'s ``torch_kernel_launches_total{kernel}``,
+``torch_kernel_row_passes_total{kernel}`` and ``torch_kernel_builds_total``
+/ ``torch_kernel_build_seconds_total``.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ LEAF_TILE = 16
 
 LAUNCHES = {"stump_histograms": 0, "node_histograms": 0, "stats_histograms": 0,
             "leaf_sums": 0}
+ROW_PASSES = dict.fromkeys(LAUNCHES, 0)
 build_log: list[str] = []  # nvcc's output (ptxas register/smem report)
 
 _MODES = {"stats": 0, "stump": 1, "node": 2}
@@ -91,6 +96,14 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        ROW_PASSES[k] = 0
+
+
+def _count(counter: str, passes: int) -> None:
+    LAUNCHES[counter] += 1
+    ROW_PASSES[counter] += passes
+    torchmon.record_launch(counter)
+    torchmon.record_row_passes(counter, passes)
 
 
 def _nvcc() -> str:
@@ -202,6 +215,18 @@ def tile_plan(F: int, S: int, kb: int, itemsize: int, budget: int,
     return best[1:]
 
 
+def row_passes(F: int, kb: int, tile_features: int, tile_cells: int) -> int:
+    """Passes over its rows of a launch that ``tile_plan`` cut into tiles of
+    ``tile_features`` x ``tile_cells``: one per tile of its ``[F, kb]`` cells."""
+    return -(-F // tile_features) * -(-kb // tile_cells)
+
+
+def leaf_row_passes(segs: int) -> int:
+    """Passes over its rows of a leaf-sum launch of ``segs`` segments: one per
+    tile of ``LEAF_TILE`` segments (``csrc/histogram.cu``'s leaf sums)."""
+    return -(-segs // LEAF_TILE)
+
+
 def _fold_stride(t: torch.Tensor, name: str, inner: int, k: "int | None") -> int:
     """The stride (elements) between folds of ``t``, whose last ``inner``
     dimensions must be contiguous: 0 where ``t`` has no fold axis (one array
@@ -218,8 +243,9 @@ def _fold_stride(t: torch.Tensor, name: str, inner: int, k: "int | None") -> int
 def _launch(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.Tensor,
             b: "torch.Tensor | None", S: int, kb: int, B: int, counter: str) -> torch.Tensor:
     """Checks, allocates the zeroed output, launches once and adds one to
-    ``LAUNCHES[counter]``. Returns ``[k, S, F, kb]`` (``[k, 4, K, F, B]`` in
-    node mode) with k = 1 where ``a`` has no fold axis.
+    ``LAUNCHES[counter]`` and the plan's tiles to ``ROW_PASSES[counter]``.
+    Returns ``[k, S, F, kb]`` (``[k, 4, K, F, B]`` in node mode) with k = 1
+    where ``a`` has no fold axis.
 
     ``bins [n, F]`` (shared by every fold) or ``[k, n, F]``; ``key``: the
     int32 segment offsets ``[(k,) n]`` (stats mode), the int32 node ids
@@ -278,8 +304,7 @@ def _launch(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.
         if code != 0:
             msg = lib.histogram_error_string(code).decode()
             raise RuntimeError(f"histogram kernel launch failed ({code}): {msg}")
-    LAUNCHES[counter] += 1
-    torchmon.record_launch(counter)
+    _count(counter, row_passes(F, kb, tile_f, tile_c))
     return out
 
 
@@ -385,6 +410,5 @@ def leaf_sums_cuda(node: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor, k
         if err != 0:
             raise RuntimeError(f"leaf-sum kernel launch failed ({err}): "
                                f"{lib.histogram_error_string(err).decode()}")
-    LAUNCHES["leaf_sums"] += 1
-    torchmon.record_launch("leaf_sums")
+    _count("leaf_sums", leaf_row_passes(segs))
     return out

@@ -357,6 +357,7 @@ def test_torchmon_hooks_feed_the_families():
     torchmon.record_kernel_build(0.25)
     torchmon.record_launch("node_histograms")
     torchmon.record_launch("node_histograms")
+    torchmon.record_row_passes("node_histograms", 84)
     torchmon.record_transfer("h2d", 128)
     after = torchmon.totals()
     assert after["torch_graph_captures_total"] == before["torch_graph_captures_total"] + 1
@@ -365,10 +366,13 @@ def test_torchmon_hooks_feed_the_families():
         before["torch_kernel_build_seconds_total"] + 0.249
     launches = before["torch_kernel_launches_total"].get("node_histograms", 0)
     assert after["torch_kernel_launches_total"]["node_histograms"] == launches + 2
+    passes = before["torch_kernel_row_passes_total"].get("node_histograms", 0)
+    assert after["torch_kernel_row_passes_total"]["node_histograms"] == passes + 84
     h2d = before["torch_transfer_bytes_total"].get("h2d", 0)
     assert after["torch_transfer_bytes_total"]["h2d"] == h2d + 128
     text = registry.REGISTRY.render_prometheus()
     assert 'torch_kernel_launches_total{kernel="node_histograms"}' in text
+    assert 'torch_kernel_row_passes_total{kernel="node_histograms"}' in text
     assert validate_metrics.validate(text) == []
     json.dumps(after)
 
@@ -377,19 +381,22 @@ def test_torchmon_hooks_are_noops_before_install_and_never_raise(monkeypatch):
     monkeypatch.setattr(torchmon, "_families", {})
     torchmon.record_graph_capture()
     torchmon.record_launch("stump_histograms")
+    torchmon.record_row_passes("stump_histograms", 1)
     assert torchmon.totals() == {
         "torch_graph_captures_total": 0, "torch_kernel_builds_total": 0,
         "torch_kernel_build_seconds_total": 0.0, "torch_kernel_launches_total": {},
-        "torch_transfer_bytes_total": {}}
+        "torch_kernel_row_passes_total": {}, "torch_transfer_bytes_total": {}}
 
     class Broken:
         def labels(self, **kv):
             raise RuntimeError("broken family")
 
     monkeypatch.setattr(torchmon, "_families", {"graph_captures": Broken(),
-                                                "kernel_launches": Broken()})
+                                                "kernel_launches": Broken(),
+                                                "kernel_row_passes": Broken()})
     torchmon.record_graph_capture()
     torchmon.record_launch("stump_histograms")
+    torchmon.record_row_passes("stump_histograms", 1)
 
 
 def test_transfer_helpers_on_the_cpu_count_nothing(monkeypatch):
