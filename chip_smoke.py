@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--rows N] [--seed S]
+    python3 chip_smoke.py [--rows N] [--seed S] [--node-levels]
 
 It drives the port's main path (``machine_learning_replications_tpu_torch``,
 never JAX) through the entry points a user calls, and prints one JSON line
@@ -21,6 +21,13 @@ per phase:
            inactive), node counts exactly; with its time on the cohort's
            bins and on uniform bins (the contention probe), the plain
            version's, one ``index_add_`` call's, and the bound;
+  node_levels  the node entry at each level of one depth-8 tree on the
+           HIGGS configuration's 10.5M x 28 rows, of one depth-3 tree on
+           10M x 17 cohort rows and of the 5-fold fits (K = 2, 4; 50,000
+           rows in float32, 713 in float64), through the walk ``node_plan``
+           takes and through the tiled walk, against the plain version, timed
+           beside the partition alone, the plain version and the bound
+           (``--node-levels`` runs this phase alone, after device and build);
   train    ``gbdt.fit`` of the reference GBDT member (100 depth-1 stumps,
            256 hist bins) on ``--rows`` x 17 synthetic-cohort rows through
            the kernel, against the same fit through the plain version
@@ -208,6 +215,7 @@ script exits non-zero and prints no result; without CUDA it stops at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -275,8 +283,9 @@ FLEET_PATIENTS = 1600
 FLEET_GATES = ["--max-divergence-mean", "0.5", "--max-divergence-p95", "0.6",
                "--max-score-psi", "50"]
 HOLD_POLLS = 1_000_000
-SHAPE_KEYS = ("n", "F", "K", "folds", "B", "bins", "vals", "launches_per_fit_pipeline",
-              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+SHAPE_KEYS = ("shape", "n", "F", "K", "folds", "B", "bins", "vals", "launches_per_fit_pipeline",
+              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "row_passes", "tiled_ms", "partition_ms")
 
 
 def emit(obj: dict) -> None:
@@ -2829,6 +2838,140 @@ def phase_leaf_kernels(peaks: dict, seed: int, dev: torch.device) -> list:
     return out
 
 
+def record_levels(X: torch.Tensor, y: torch.Tensor, depth: int, dev) -> list:
+    """One stage of a depth-``depth`` ``gbdt.fit`` of (X, y) on the card, each
+    level's node-kernel inputs kept: ``[(binned, node_local, g, h, K)]``."""
+    levels = []
+    real = cuda_histogram.node_histograms_cuda
+
+    def keep(binned, node_local, g, h, n_nodes, max_bins):
+        levels.append((binned, node_local.clone(), g.clone(), h.clone(), n_nodes))
+        return real(binned, node_local, g, h, n_nodes, max_bins)
+
+    cuda_histogram.node_histograms_cuda = keep      # gbdt resolves it at each fit
+    try:
+        gbdt.fit(X, y, GBDTConfig(n_estimators=1, max_depth=depth, splitter="hist", n_bins=256),
+                 device=dev)
+    finally:
+        cuda_histogram.node_histograms_cuda = real
+    return levels
+
+
+@contextlib.contextmanager
+def tiled_walk():
+    """The node entry's tiled walk at every K, for timing it beside the
+    partitioned walk that ``node_plan`` would take."""
+    real = cuda_histogram.node_plan
+
+    def tiled(F, K, B, itemsize, budget, bin_itemsize, folds=1):
+        return cuda_histogram.NodePlan(False, *cuda_histogram.tile_plan(
+            F, 4, K * B, itemsize, budget, (F * bin_itemsize, 4, itemsize, itemsize)))
+
+    cuda_histogram.node_plan = tiled        # _launch looks it up at each call
+    try:
+        yield
+    finally:
+        cuda_histogram.node_plan = real
+
+
+def time_node_level(name: str, binned, node, g, h, K: int, flush, peaks: dict,
+                    plain_reps: int = 3) -> dict:
+    """One node launch's shape: the entry (the walk ``node_plan`` takes) and
+    the tiled walk against the plain version, counts exactly; the
+    partitioned walk's sums held to ``compare``'s tolerance, the tiled
+    walk's largest error reported (its float32 cells sum every row a CTA
+    walks, which at 10M rows passes 1e-5 of the mass: PERF.md §7).
+    Then both walks timed (CUDA events, L2 flushed) beside the partition
+    alone, the plain version and the bound: bins (once, shared by folds),
+    node ids, g and h read once, the four ``[k, K, F, B]`` outputs written
+    once, 4 additions per active (row, feature)."""
+    B = 256
+    n, F = binned.shape[-2:]
+    k = node.shape[0] if node.dim() == 2 else 1
+    dtype = g.dtype
+    plan = cuda_histogram.node_plan(F, K, B, g.element_size(), cuda_histogram.smem_budget(
+        binned.device), binned.element_size(), k)
+    want = histogram.node_histograms(binned, node, g.double(), h.double(), K, B)
+    mass = histogram.node_histograms(binned, node, g.double().abs(), h.double().abs(), K, B)
+    worst = {}
+    for walk in ("entry", "tiled"):
+        with tiled_walk() if walk == "tiled" else contextlib.nullcontext():
+            got = cuda_histogram.node_histograms_cuda(binned, node, g, h, K, B)
+        torch.cuda.synchronize()
+        stats = {st: compare(getattr(got, st), getattr(want, st), getattr(mass, st), dtype)
+                 for st in STATS}
+        check(bool(torch.equal(got.count.double(), want.count)),
+              f"node counts ({walk} walk) vs plain at {name}")
+        worst[walk] = max(v["max_err_over_mass"] for v in stats.values())
+        if walk == "entry" and plan.partitioned:
+            check(all(v["ok"] for v in stats.values()),
+                  f"partitioned node walk vs plain at {name}: {stats}")
+    del got, want, mass
+
+    def entry():
+        return cuda_histogram.node_histograms_cuda(binned, node, g, h, K, B)
+
+    with tiled_walk():
+        tiled_ms = timed_ms(entry, flush, reps=10)
+    item = g.element_size()
+    return {
+        "shape": name, "n": n, "F": F, "K": K, "folds": k if node.dim() == 2 else None,
+        "B": B, "bins": str(binned.dtype).replace("torch.", ""),
+        "vals": str(dtype).replace("torch.", ""), "plan": plan._asdict(),
+        "row_passes": cuda_histogram.node_row_passes(F, K, B, plan),
+        "tiled_row_passes": cuda_histogram.row_passes(F, K * B, *cuda_histogram.tile_plan(
+            F, 4, K * B, item, cuda_histogram.smem_budget(binned.device),
+            (F * binned.element_size(), 4, item, item))[:2]),
+        "active_share": float((node >= 0).float().mean()),
+        "max_err_over_mass": worst["entry"], "tiled_max_err_over_mass": worst["tiled"],
+        "ms": timed_ms(entry, flush), "tiled_ms": tiled_ms,
+        "partition_ms": timed_ms(lambda: cuda_histogram.node_partition_cuda(
+            binned, node, g, h, K), flush) if K >= 2 else None,
+        "plain_ms": timed_ms(lambda: histogram.node_histograms(binned, node, g, h, K, B), flush,
+                             reps=plain_reps, warmup=1),
+        **bound(binned.numel() * binned.element_size() + k * n * (4 + 2 * item)
+                + 4 * k * K * F * B * item, 4 * F * int((node >= 0).sum()), peaks,
+                str(dtype).replace("torch.", "")),
+        "reps": 30, "l2": "flushed before each call"}
+
+
+def phase_node_levels(peaks: dict, seed: int, dev: torch.device) -> list:
+    """The node entry at the shapes its walks are chosen for: the 8 levels of
+    a depth-8 tree on the HIGGS configuration's 10.5M x 28 rows and the 3 of a
+    depth-3 tree on the 10M x 17 cohort (each level's node ids and (g, h)
+    from one stage of ``gbdt.fit`` on the card), and the 5-fold depth-3 fold
+    fits' levels (K = 2, 4) at 50,000 rows in float32 and 713 in float64
+    (each fold's train rows spread over the nodes at random). Each shape
+    through the walk ``node_plan`` takes and through the tiled walk
+    (``time_node_level``)."""
+    from hfbench.gen import cohort
+
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    out = []
+    for spec, rows, depth in (("higgs", 10_500_000, 8), ("table_s1", 10_000_000, 3)):
+        X, y = cohort.gbdt_cohort(rows, seed, dev, spec_name=spec)
+        levels = record_levels(X, y, depth, dev)
+        del X, y
+        for level, (binned, node, g, h, K) in enumerate(levels):
+            out.append(time_node_level(f"{spec}_depth{depth}_level{level}", binned, node, g, h,
+                                       K, flush, peaks))
+            emit({"phase": "node_levels", **out[-1]})
+        del levels, binned, node, g, h
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for rows, dtype in ((50_000, torch.float32), (713, torch.float64)):
+        bins, node1, gg, hh, nb = fold_fit_inputs(rows, seed, dtype, dev)
+        check(nb == 256, f"the fold fits' bins: {nb}")
+        for K in (2, 4):
+            spread = torch.randint(0, K, node1.shape, generator=gen, device=dev, dtype=torch.int32)
+            node = torch.where(node1 >= 0, spread, -1)
+            out.append(time_node_level(f"folds5_{rows}_K{K}", bins, node, gg, hh, K, flush,
+                                       peaks, plain_reps=10))
+            emit({"phase": "node_levels", **out[-1]})
+    del flush
+    return out
+
+
 def sharded_fit_timed(mesh, Xd, yd, cfg):
     from machine_learning_replications_tpu_torch.parallel import fit_gbdt_sharded
 
@@ -3338,6 +3481,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep-rows", type=int, default=50_000,
                     help="cohort rows for the CV sweep (bench.py config 4's default)")
     ap.add_argument("--seed", type=int, default=2020, help="seed of the cohort and parameters")
+    ap.add_argument("--node-levels", action="store_true",
+                    help="run only the device, build and node_levels phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3348,6 +3493,11 @@ def main(argv=None) -> int:
     info = phase_device()
     peaks = PEAKS[info["peaks"]]
     phase_build()
+    if args.node_levels:
+        phase_node_levels(peaks, args.seed, dev)
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "phase_seconds": time.perf_counter() - t_start})
+        return 0
 
     X, y, _ = make_cohort(n=args.rows, seed=args.seed)
     X17 = np.ascontiguousarray(X[:, selected_indices()], dtype=np.float32)
@@ -3365,6 +3515,7 @@ def main(argv=None) -> int:
         kern[name]["rank_shapes"] = shapes
     del binned, g, h
     leaf = phase_leaf_kernels(peaks, args.seed, dev)
+    kern["node_histograms"]["level_shapes"] = phase_node_levels(peaks, args.seed, dev)
     torch.cuda.empty_cache()
 
     # The main path, one phase at a time: counts from 0 before, read after.
@@ -3418,7 +3569,8 @@ def main(argv=None) -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         **{group: [{key: e[key] for key in SHAPE_KEYS if key in e} for e in k[group]]
-           for group in ("exact_shapes", "train_shapes", "rank_shapes") if group in k},
+           for group in ("exact_shapes", "train_shapes", "rank_shapes", "level_shapes")
+           if group in k},
     } for name, k in kern.items()] + [{
         "name": "leaf_sums", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": "none (the grower's float64 index_add_ pair)",

@@ -17,7 +17,9 @@
 //          forms a = [0 <= node < K], the statistics (g*a, h*a, g*g*a, a) and
 //          seg = node*B in registers, skips inactive rows before touching
 //          their bins, and writes out[k, s, node, f, b] ([K, F, B] per
-//          statistic, the grower's layout).
+//          statistic, the grower's layout). Where it pays (note 5) the node
+//          mode runs as a partitioned walk: the same contract, summed over a
+//          copy of the rows sorted by node.
 // Every per-row input is [folds, n, ...] with its own fold stride (0 = one
 // array shared by every fold, as the bins of a fold fit are); the fold is
 // blockIdx.z.
@@ -25,10 +27,13 @@
 // Bound. One pass over the inputs: n*F bin ids plus the per-row inputs, and
 // the output written once. At the fused fit's shape (n = 1M, F = 17, u8
 // bins, float32 g and h) that is 25 MB, 7.5 us at 3.35 TB/s; at depth 3's
-// last level (plus int32 nodes and a [4, 4, 17, 256] output) 29 MB. The
-// n*F*S additions are far below the card's float rate: the kernel is bound
-// by bytes. What held the element-major kernel this design replaced 130-230x
-// over that bound, and what each step of the design does about it:
+// last level (plus int32 nodes and a [4, 4, 17, 256] output) 29 MB; at
+// depth 8's last level on HIGGS's widths (n = 10.5M, F = 28, K = 128) 435
+// MB, 0.13 ms (the partition's own traffic, note 5, is over this bound and
+// counts against it). The n*F*S additions are far below the card's float
+// rate: the kernel is bound by bytes. What held the element-major kernel
+// this design replaced 130-230x over that bound, and what each step of the
+// design does about it:
 //
 // 1. Same-address shared atomics. The element-major walk made one shared
 //    atomicAdd per (row, feature, statistic). On the cohort 14 of the 17
@@ -65,15 +70,68 @@
 //    [n, S] value matrix and the segment ids with six elementwise passes and
 //    a stack per call. The kernel now reads node, g and h itself (mode
 //    above), so a wrapper only allocates the zeroed output.
-// 4. Shared memory and occupancy. The whole S*F*KB histogram fits one CTA
-//    only at small depths (the fused fit: 34.8 KB; depth 3's last level:
-//    278.5 KB, over the 227 KB a CTA may opt in to). The [F, KB] cells are cut
-//    into tiles of tile_features x tile_cells (blockIdx.y; whole features
-//    first, cell ranges where one feature alone is too large), each CTA
-//    walking every row of its fold but only its tile's features. The caller
-//    (ops/cuda_histogram.tile_plan) picks the tiles and R together, with the
-//    staging ring's bytes reserved, for the fewest tiles and then the
+// 4. Shared memory and occupancy: the tiled walk. The whole S*F*KB
+//    histogram fits one CTA only at small depths (the fused fit: 34.8 KB;
+//    depth 3's last level: 278.5 KB, over the 227 KB a CTA may opt in to).
+//    The tiled walk cuts the [F, KB] cells into tiles of tile_features x
+//    tile_cells (blockIdx.y; whole features first, cell ranges where one
+//    feature alone is too large), and each CTA walks every row of its fold
+//    but sums only its tile's cells. One node's cells of one feature take
+//    S*B*4 = 4 KB in float32, so at K nodes a level a feature takes 4*K KB:
+//    from K = 32 a CTA holds at most one feature, at K = 64 and 128 a part of
+//    one. Every tile re-reads every row (all F bin bytes and the per-row
+//    inputs of each staged block) and uses one byte of bins of the rows
+//    whose node falls in its range: at HIGGS's widths (F = 28) the levels of
+//    a depth-8 tree take 1, 1, 2, 4, 10, 28, 56 and 84 passes over the rows,
+//    186 where 8 are work, and at level 7 the 84 tiles fill 84 of the card's
+//    132 SMs with one CTA each. Where the tiles fit, the cells' room leaves
+//    little for the ring: depth 8's levels 1-3 stage 32-row blocks. The
+//    caller (ops/cuda_histogram.tile_plan) picks the tiles and R together,
+//    with the ring's bytes reserved, for the fewest tiles and then the
 //    largest R. CTAs have 1024 threads: at depth 3 only one fits an SM.
+// 5. The partitioned walk (node mode, one fit, K >= 2, where the tiled plan
+//    takes more than two passes or smaller blocks; ops/cuda_histogram.
+//    node_plan). One launch first sorts the level's rows by node on the
+//    card, then walks each node's rows once with all of a node's features'
+//    cells held together, so the cells a CTA holds no longer grow with K:
+//    a. count (histogram_kernel_partition_count): per block of 16,384 rows,
+//       the rows of each node (warp-aggregated shared atomics); parked rows
+//       (node -1, or outside [0, K)) are dropped;
+//    b. scan (histogram_kernel_partition_scan, a CTA per fold): the
+//       node-major [K, blocks] counts become each block's first position per
+//       node, and their node-major order the fold's [K + 1] node offsets;
+//    c. scatter (histogram_kernel_partition_scatter): each block puts its
+//       active rows' bins, g and h in node order and within a node in row
+//       order (a stable counting sort) into a scratch copy of the same
+//       layout, so the walk stages contiguous rows with its bulk-copy ring
+//       as the tiled walk does. It stages 2,048 rows at a time in shared
+//       memory in that order and writes each node's run out whole: a row
+//       written where it lands took 2.3 ms at K = 128 (against 0.65 ms at
+//       K = 2), its stores spread over as many places as nodes;
+//    d. walk (histogram_kernel_sorted): a grid fixed from n (the host never
+//       reads a count back) where each CTA takes an equal range of the
+//       fold's sorted rows, cut at multiples of 32 rows so that its blocks
+//       stay 16-byte aligned, and one feature tile (blockIdx.y) of the node
+//       at hand. It learns where each node ends from the offsets, sums with
+//       add_peers as above (one segment: cell = bin), and when the node ends,
+//       or after 8,192 of its rows, adds its nonzero cells to `out` with one
+//       global atomic each and clears them. The second bound keeps a float32
+//       cell's run of additions as short as a 1M-row fit's: summing up to
+//       80,000 rows a CTA put 1.3e-5 of a cell's mass in its error at 10.5M
+//       rows, 8,192 at a time 1-3e-6, for 0.1 ms more a level. A node's
+//       cells for all 28 features are 114.7 KB in float32, beside a ring of
+//       1024-row blocks: one pass at HIGGS's widths whatever K is, as the
+//       root level's.
+//    The partition reads each row's bins, g, h and node id and writes all
+//    but the node id: about 80 bytes a row, 0.25 ms at 10.5M x 28 by the
+//    bytes, 0.8-1.1 ms measured on an H100 at every K; the walk then takes
+//    what the root level does (3.0 ms). The scratch copy (about 36 bytes a
+//    row: 0.4 GB at 10.5M rows) is the caller's. Every other launch takes
+//    the tiled walk: a level of one node, fold launches (at 5 x 50,000 rows
+//    the partition alone takes twice the tiled walk), the stump and stats
+//    entries, and node levels whose tiled plan is at most two passes of
+//    full blocks (depth 3's last level at 10M x 17: 1.87 ms tiled against
+//    2.5 ms partitioned).
 //
 // At the end each CTA adds its nonzero cells into `out` with one global
 // atomicAdd each. Float atomics and the shuffle sums regroup additions, so
@@ -95,8 +153,10 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kErrSharedMemory = 1000001;  // the plan does not fit the opt-in budget
 constexpr int kErrBadArgument = 1000002;
 constexpr int kMaxGridYZ = 65535;
+constexpr int kFlushRows = 8192;  // the sorted walk's rows summed in a cell before it is added out
 
-enum Mode { kStats = 0, kStump = 1, kNode = 2 };
+// kSorted: node mode's statistics over rows sorted by node (note 5d).
+enum Mode { kStats = 0, kStump = 1, kNode = 2, kSorted = 3 };
 
 // One per-row input, copied block by block into each stage of the ring.
 // row_bytes == 0: absent.
@@ -115,6 +175,7 @@ struct Params {
   int F, S, KB, B, K;         // node mode: KB = K*B
   bool has_key;               // stream 1 holds int32 seg or node ids
   int tile_features, tile_cells, block_rows, stage_bytes;
+  const int* offsets;         // kSorted: [folds, K + 1] node offsets of the sorted rows
 };
 
 // A row's cell, seg + bin: int where it cannot pass 2^31 (one-byte bins and
@@ -179,16 +240,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // ---- staging ----
 
-// Copies rows [blk*R, blk*R + rows) of every stream of fold `fold` into
-// `stage`. Thread 0 starts one bulk copy per aligned stream and arrives on
-// `bar` with their byte count; the other streams are copied with ordinary
-// loads by every thread (visible to the consumer through the __syncthreads
-// that separate this call from that stage's next use). Every thread
-// evaluates the same alignment predicates, so the branches are uniform.
-__device__ __forceinline__ void stage_block(const Params& p, unsigned char* stage,
-                                            uint64_t* bar, long long fold, long long blk) {
-  const long long r0 = blk * p.block_rows;
-  const long long rows = min((long long)p.block_rows, p.n - r0);
+// Copies rows [r0, r0 + rows) of every stream of fold `fold` into `stage`.
+// Thread 0 starts one bulk copy per aligned stream and arrives on `bar`
+// with their byte count; the other streams are copied with ordinary loads
+// by every thread (visible to the consumer through the __syncthreads that
+// separate this call from that stage's next use). Every thread evaluates
+// the same alignment predicates, so the branches are uniform.
+__device__ __forceinline__ void stage_rows(const Params& p, unsigned char* stage, uint64_t* bar,
+                                           long long fold, long long r0, long long rows) {
   unsigned bulk_bytes = 0;
   bool plain = false;
 #pragma unroll
@@ -237,6 +296,13 @@ __device__ __forceinline__ void stage_block(const Params& p, unsigned char* stag
   fence_proxy_async();
 }
 
+// Block `blk` of the tiled walk: rows [blk*R, min((blk + 1)*R, n)).
+__device__ __forceinline__ void stage_block(const Params& p, unsigned char* stage, uint64_t* bar,
+                                            long long fold, long long blk) {
+  const long long r0 = blk * p.block_rows;
+  stage_rows(p, stage, bar, fold, r0, min((long long)p.block_rows, p.n - r0));
+}
+
 // ---- warp-aggregated accumulation ----
 
 // Lanes holding the same valid `cell` sum their NV statistics and the
@@ -278,16 +344,16 @@ __device__ __forceinline__ void add_peers(ValT* h, int plane, bool ok, unsigned 
   }
 }
 
-// The rows of one staged block, summed into this CTA's tile histogram.
+// Rows [lo, hi) of one staged block, summed into this CTA's tile histogram.
 // Warps take 32-row chunks (and, where a block has fewer chunks than warps,
 // share a chunk's features); a lane forms its row's statistics once and
 // steps over the tile's features.
 template <int MODE, typename BinT, typename ValT>
-__device__ __forceinline__ void accumulate(const Params& p, const unsigned char* stage, int rows,
-                                           ValT* hist, int f_lo, int c_lo, int tfw, int tcw,
-                                           int plane) {
+__device__ __forceinline__ void accumulate(const Params& p, const unsigned char* stage, int lo,
+                                           int hi, ValT* hist, int f_lo, int c_lo, int tfw,
+                                           int tcw, int plane) {
   using CellT = typename CellType<sizeof(BinT) == 1 && MODE != kStats>::type;
-  constexpr int NV = MODE == kStump ? 2 : (MODE == kNode ? 3 : 4);
+  constexpr int NV = MODE == kStump ? 2 : (MODE == kStats ? 4 : 3);
   constexpr int L = sizeof(BinT) == 1 ? 4 : 1;  // lane stride in rows (see note 2)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const BinT* sbins = reinterpret_cast<const BinT*>(stage + p.stream[0].smem_off);
@@ -300,7 +366,7 @@ __device__ __forceinline__ void accumulate(const Params& p, const unsigned char*
   const int cstep = kWarps / wpc;
   for (int c = warp / wpc; c < chunks; c += cstep) {
     const int r = permuted ? (c / L) * (32 * L) + lane * L + (c % L) : (c << 5) + lane;
-    bool live = r < rows;
+    bool live = (MODE != kSorted || r >= lo) && r < hi;  // the tiled walk's lo is 0
     CellT seg = 0;
     for (int s0 = 0; s0 < (MODE == kStats ? p.S : 1); s0 += NV) {
       ValT v[NV];
@@ -319,6 +385,13 @@ __device__ __forceinline__ void accumulate(const Params& p, const unsigned char*
         if (live) {
           v[0] = sa[r];
           v[1] = sb[r];
+        }
+      } else if (MODE == kSorted) {
+        if (live) {  // every row of the window is the node's: seg = 0
+          const ValT g = sa[r];
+          v[0] = g;
+          v[1] = sb[r];
+          v[2] = g * g;
         }
       } else {
         if (live) {
@@ -346,8 +419,8 @@ __device__ __forceinline__ void accumulate(const Params& p, const unsigned char*
         const int j = j0 + t * wpc;
         const CellT cell = seg + (CellT)brow[j] - c_lo;
         const bool ok = live && cell >= 0 && cell < tcw;
-        add_peers<NV, MODE == kNode, ValT>(hs + j * tcw + (ok ? (int)cell : 0), plane, ok,
-                                           (unsigned)cell, v, nv, lane);
+        add_peers<NV, MODE == kNode || MODE == kSorted, ValT>(
+            hs + j * tcw + (ok ? (int)cell : 0), plane, ok, (unsigned)cell, v, nv, lane);
       }
     }
   }
@@ -389,8 +462,8 @@ __global__ void __launch_bounds__(kThreads, 1) histogram_kernel(const __grid_con
     const int s = (int)(it % kStages);
     mbar_wait(&bars[s], (unsigned)((it / kStages) & 1));
     const int rows = (int)min((long long)p.block_rows, p.n - blk * p.block_rows);
-    accumulate<MODE, BinT, ValT>(p, ring + s * p.stage_bytes, rows, hist, f_lo, c_lo, tfw, tcw,
-                                 plane);
+    accumulate<MODE, BinT, ValT>(p, ring + s * p.stage_bytes, 0, rows, hist, f_lo, c_lo, tfw,
+                                 tcw, plane);
     __syncthreads();  // every warp is done with stage s
     const long long next = blk + (long long)kStages * gridDim.x;
     if (next < n_blocks) stage_block(p, ring + s * p.stage_bytes, &bars[s], fold, next);
@@ -419,6 +492,109 @@ __global__ void __launch_bounds__(kThreads, 1) histogram_kernel(const __grid_con
   }
 }
 
+// The partitioned walk (note 5d): this CTA's share of fold blockIdx.z's
+// rows, sorted by node, for features [f_lo, f_lo + tfw) of one node at a
+// time. p.KB is B here (one node's cells of a feature).
+template <typename BinT, typename ValT>
+__global__ void __launch_bounds__(kThreads, 1)
+    histogram_kernel_sorted(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* ring = smem + kBarrierBytes;
+  ValT* hist = reinterpret_cast<ValT*>(ring + kStages * p.stage_bytes);
+
+  const long long fold = blockIdx.z;
+  const int f_lo = blockIdx.y * p.tile_features;
+  const int tfw = min(p.tile_features, p.F - f_lo);
+  const int plane = tfw * p.B;
+  const int cells = 4 * plane;
+  const int* offs = p.offsets + fold * (p.K + 1);
+  // Rows [a, b) of the fold's `total` sorted rows, cut at multiples of 32.
+  const long long total = offs[p.K];
+  const long long a = (total * blockIdx.x / gridDim.x) & ~31LL;
+  const long long b =
+      blockIdx.x + 1 == gridDim.x ? total : (total * (blockIdx.x + 1) / gridDim.x) & ~31LL;
+  const long long n_blocks = b > a ? (b - a + p.block_rows - 1) / p.block_rows : 0;
+  if (n_blocks == 0) return;  // the whole CTA: nothing to stage or add
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int s = 0; s < kStages && s < n_blocks; ++s) {
+    const long long r0 = a + (long long)s * p.block_rows;
+    stage_rows(p, ring + s * p.stage_bytes, &bars[s], fold, r0,
+               min((long long)p.block_rows, b - r0));
+  }
+  for (int i = threadIdx.x; i < cells; i += kThreads) hist[i] = ValT(0);
+  __syncthreads();
+
+  // Adds the held node's nonzero cells to out[s, node, f_lo + j, bin] and
+  // clears them (the count plane's integers share their slots' low bytes).
+  ValT* out = static_cast<ValT*>(p.out) + fold * p.out_fold_stride;
+  auto flush = [&](int node) {
+    for (int i = threadIdx.x; i < cells; i += kThreads) {
+      const ValT x =
+          i < 3 * plane ? hist[i] : ValT(reinterpret_cast<const unsigned*>(hist + i)[0]);
+      if (x == ValT(0)) continue;
+      hist[i] = ValT(0);
+      const int s = i / plane;
+      const int j = (i - s * plane) / p.B;
+      const int bin = i - s * plane - j * p.B;
+      atomicAdd(out + (((long long)s * p.K + node) * p.F + f_lo + j) * p.B + bin, x);
+    }
+  };
+
+  // The node holding row a: the last k with offs[k] <= a (offs[0] = 0 <= a <
+  // offs[K]). Every thread reads the same offsets, so the walk's branches
+  // and barriers stay uniform.
+  int lo_k = 0, hi_k = p.K;
+  while (hi_k - lo_k > 1) {
+    const int mid = (lo_k + hi_k) >> 1;
+    if (offs[mid] <= a)
+      lo_k = mid;
+    else
+      hi_k = mid;
+  }
+  int node = lo_k;
+  long long end = offs[node + 1];
+  int held = 0;  // rows summed since the last flush
+  for (long long it = 0; it < n_blocks; ++it) {
+    const int s = (int)(it % kStages);
+    mbar_wait(&bars[s], (unsigned)((it / kStages) & 1));
+    const long long r0 = a + it * p.block_rows;
+    const int rows = (int)min((long long)p.block_rows, b - r0);
+    for (int lo = 0; lo < rows;) {
+      const int hi = (int)min((long long)rows, end - r0);
+      accumulate<kSorted, BinT, ValT>(p, ring + s * p.stage_bytes, lo, hi, hist, f_lo, 0, tfw,
+                                      p.B, plane);
+      held += hi - lo;
+      if (r0 + hi < end && held < kFlushRows) break;  // the node goes on past this block
+      __syncthreads();
+      flush(node);
+      __syncthreads();
+      held = 0;
+      if (r0 + hi < end) break;
+      do ++node;  // the next node with rows
+      while (node < p.K && offs[node + 1] <= end);
+      if (node < p.K) end = offs[node + 1];
+      lo = hi;
+    }
+    __syncthreads();  // every warp is done with stage s
+    const long long next = it + kStages;
+    if (next < n_blocks) {
+      const long long q0 = a + next * p.block_rows;
+      stage_rows(p, ring + s * p.stage_bytes, &bars[s], fold, q0,
+                 min((long long)p.block_rows, b - q0));
+    }
+  }
+  if (held > 0) {
+    __syncthreads();
+    flush(node);
+  }
+}
+
 template <int MODE, typename BinT, typename ValT>
 int launch(Params p, int folds, int device, cudaStream_t stream) {
   if (p.n <= 0 || folds <= 0) return 0;
@@ -434,7 +610,11 @@ int launch(Params p, int folds, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)optin) return kErrSharedMemory;
 
-  auto kernel = histogram_kernel<MODE, BinT, ValT>;
+  decltype(&histogram_kernel<kNode, BinT, ValT>) kernel;
+  if constexpr (MODE == kSorted)
+    kernel = histogram_kernel_sorted<BinT, ValT>;
+  else
+    kernel = histogram_kernel<MODE, BinT, ValT>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
@@ -462,6 +642,288 @@ int dispatch(const Params& p, int bin_dtype, int val_dtype, int folds, int devic
   if (bin_dtype == 1 && val_dtype == 0) return launch<MODE, int32_t, float>(p, folds, device, st);
   if (bin_dtype == 1 && val_dtype == 1) return launch<MODE, int32_t, double>(p, folds, device, st);
   return kErrBadArgument;
+}
+
+// ---- the partition (note 5a-c) ----
+
+constexpr int kPartThreads = 1024;
+constexpr int kPartWarps = kPartThreads / 32;  // 32: one scan step over a warp's lanes
+constexpr int kPartRows = 16384;              // rows of a count or scatter block
+constexpr int kMaxStageChunks = 2;            // a scatter sub-block: at most 2 x 1024 rows
+constexpr int kScatterStaticBytes = 4 * kPartWarps;  // the scatter's static shared memory
+constexpr int kPartMaxNodes = 1024;  // nodes a scatter block scans, one thread each
+constexpr int kScanItems = 8;        // consecutive counts a scan thread takes
+
+struct PartParams {
+  const unsigned char* bins;  // [folds, n, F] (fold stride 0: shared by every fold)
+  const int32_t* node;        // [folds, n]
+  const unsigned char* g;     // [folds, n], float32 or float64
+  const unsigned char* h;
+  long long bins_fold_stride, node_fold_stride, g_fold_stride, h_fold_stride;  // bytes
+  unsigned char* sorted_bins;  // [folds, n_pad, F]: the active rows in node order
+  unsigned char* sorted_g;     // [folds, n_pad]
+  unsigned char* sorted_h;
+  int* counts;   // [folds, K, blocks]: counts, then each block's first position per node
+  int* offsets;  // [folds, K + 1]: node k's sorted rows are [offsets[k], offsets[k + 1])
+  long long n, n_pad;
+  int K, blocks, bin_row_bytes, val_bytes, stage_rows;
+};
+
+__device__ __forceinline__ const int32_t* fold_nodes(const PartParams& p, long long fold) {
+  return reinterpret_cast<const int32_t*>(reinterpret_cast<const unsigned char*>(p.node) +
+                                          fold * p.node_fold_stride);
+}
+
+// Per block of kPartRows rows and fold blockIdx.z, the active rows of each
+// node → counts[fold, node, blockIdx.x].
+__global__ void __launch_bounds__(kPartThreads)
+    histogram_kernel_partition_count(const __grid_constant__ PartParams p) {
+  extern __shared__ int part_smem[];
+  int* cnt = part_smem;  // [K]
+  const long long fold = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x; k < p.K; k += kPartThreads) cnt[k] = 0;
+  __syncthreads();
+  const int32_t* node = fold_nodes(p, fold);
+  const long long r0 = (long long)blockIdx.x * kPartRows;
+  const long long r1 = min(p.n, r0 + kPartRows);
+  for (long long c0 = r0; c0 < r1; c0 += kPartThreads) {
+    const long long r = c0 + threadIdx.x;
+    const int nd = r < r1 ? node[r] : -1;
+    const bool ok = nd >= 0 && nd < p.K;
+    const unsigned peers = __match_any_sync(kFull, ok ? (unsigned)nd : kFull);
+    if (ok && (peers & ((1u << lane) - 1u)) == 0u) atomicAdd(&cnt[nd], __popc(peers));
+  }
+  __syncthreads();
+  int* out = p.counts + fold * p.K * p.blocks;
+  for (int k = threadIdx.x; k < p.K; k += kPartThreads)
+    out[(long long)k * p.blocks + blockIdx.x] = cnt[k];
+}
+
+// One CTA per fold: the exclusive scan of the fold's node-major [K, blocks]
+// counts, in place, in tiles of kPartThreads * kScanItems; then the node
+// offsets (node k's first position, and the active rows' count at K).
+__global__ void __launch_bounds__(kPartThreads)
+    histogram_kernel_partition_scan(const __grid_constant__ PartParams p) {
+  __shared__ int warp_total[kPartWarps];
+  const long long fold = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* c = p.counts + fold * p.K * p.blocks;
+  const long long len = (long long)p.K * p.blocks;
+  int carry = 0;  // the counts of the tiles before this one
+  for (long long t0 = 0; t0 < len; t0 += (long long)kPartThreads * kScanItems) {
+    const long long i0 = t0 + (long long)threadIdx.x * kScanItems;
+    int v[kScanItems];
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      v[j] = i0 + j < len ? c[i0 + j] : 0;
+      sum += v[j];
+    }
+    int x = sum;  // inclusive over the warp's lanes
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) warp_total[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_total[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, w, off);
+        if (lane >= off) w += y;
+      }
+      warp_total[lane] = w;
+    }
+    __syncthreads();
+    int pos = carry + (warp > 0 ? warp_total[warp - 1] : 0) + x - sum;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      if (i0 + j < len) c[i0 + j] = pos;
+      pos += v[j];
+    }
+    carry += warp_total[kPartWarps - 1];
+    __syncthreads();  // warp_total is read above; the positions are written
+  }
+  int* offs = p.offsets + fold * (p.K + 1);
+  for (int k = threadIdx.x; k < p.K; k += kPartThreads) offs[k] = c[(long long)k * p.blocks];
+  if (threadIdx.x == 0) offs[p.K] = carry;
+}
+
+// `bytes` from src to dst, as 4-byte words where both and the size allow.
+__device__ __forceinline__ void copy_bytes(unsigned char* dst, const unsigned char* src,
+                                           int bytes) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | (uintptr_t)bytes) &
+       3u) == 0) {
+    const uint32_t* s4 = reinterpret_cast<const uint32_t*>(src);
+    uint32_t* d4 = reinterpret_cast<uint32_t*>(dst);
+    for (int w = 0; w < bytes / 4; ++w) d4[w] = s4[w];
+  } else {
+    for (int i = 0; i < bytes; ++i) dst[i] = src[i];
+  }
+}
+
+// Per block of kPartRows rows: each active row's bins, g and h to its place
+// in the sorted copy, a sub-block of stage_rows rows at a time. Warp w takes
+// the sub-block's rows [w*m*32, (w + 1)*m*32) (m = stage_rows / 1024) and
+// counts them by node; per node a scan over the warps gives each warp its
+// first rank, and a scan over the nodes each node's first slot; each warp
+// then copies its rows into shared memory at slot = the node's first slot +
+// its warp's rank + its rank among its lanes of that node, so the sub-block
+// lies in node order and, within a node, in row order; last the block writes
+// each node's run of slots to that node's next places, contiguous, so whole
+// rows go out in full sectors however many nodes there are. Where a row's
+// bins are whole 4-byte words (at most 32), a warp moves a row's words on
+// neighbouring lanes.
+__global__ void __launch_bounds__(kPartThreads)
+    histogram_kernel_partition_scatter(const __grid_constant__ PartParams p) {
+  extern __shared__ __align__(16) int scatter_smem[];
+  __shared__ int warp_total[kScatterStaticBytes / 4];
+  const int K = p.K, m = p.stage_rows / kPartThreads;
+  int* wrank = scatter_smem;            // [kPartWarps, K]: counts, then first ranks
+  int* first = wrank + kPartWarps * K;  // [K + 1]: each node's first slot, the count at K
+  int* next = first + K + 1;            // [K]: each node's next place in the sorted copy
+  int* base = next + K;                 // [K]: the sub-block's first place of each node
+  int* slot_node = base + K;            // [stage_rows]
+  unsigned char* stage_bins = reinterpret_cast<unsigned char*>(slot_node + p.stage_rows);
+  unsigned char* stage_g = stage_bins + (p.stage_rows * p.bin_row_bytes + 15) / 16 * 16;
+  unsigned char* stage_h = stage_g + p.stage_rows * p.val_bytes;
+  const long long fold = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* starts = p.counts + fold * K * p.blocks;
+  for (int k = threadIdx.x; k < K; k += kPartThreads)
+    next[k] = starts[(long long)k * p.blocks + blockIdx.x];
+  const int32_t* node = fold_nodes(p, fold);
+  const unsigned char* bins = p.bins + fold * p.bins_fold_stride;
+  const unsigned char* g = p.g + fold * p.g_fold_stride;
+  const unsigned char* h = p.h + fold * p.h_fold_stride;
+  unsigned char* sbins = p.sorted_bins + fold * p.n_pad * p.bin_row_bytes;
+  unsigned char* sg = p.sorted_g + fold * p.n_pad * p.val_bytes;
+  unsigned char* sh = p.sorted_h + fold * p.n_pad * p.val_bytes;
+  const int words = p.bin_row_bytes / 4;
+  const bool together = p.bin_row_bytes % 4 == 0 && words <= 32 &&
+                        ((reinterpret_cast<uintptr_t>(bins) | reinterpret_cast<uintptr_t>(sbins)) &
+                         3u) == 0;
+  const int per_step = together ? 32 / words : 0;  // rows a warp moves in one step
+  const int sub = together ? lane / words : 0, word = lane - sub * words;
+  const long long b1 = min(p.n, ((long long)blockIdx.x + 1) * kPartRows);
+  for (long long s0 = (long long)blockIdx.x * kPartRows; s0 < b1; s0 += p.stage_rows) {
+    for (int i = threadIdx.x; i < kPartWarps * K; i += kPartThreads) wrank[i] = 0;
+    __syncthreads();  // also: `next` is filled, the last sub-block is written out
+    int nd[kMaxStageChunks];
+    unsigned peers[kMaxStageChunks];
+    for (int j = 0; j < m; ++j) {
+      const long long r = s0 + (warp * m + j) * 32 + lane;
+      nd[j] = r < b1 ? node[r] : -1;
+      const bool ok = nd[j] >= 0 && nd[j] < K;
+      if (!ok) nd[j] = -1;
+      peers[j] = __match_any_sync(kFull, ok ? (unsigned)nd[j] : kFull);
+      if (ok && (peers[j] & ((1u << lane) - 1u)) == 0u) wrank[warp * K + nd[j]] += __popc(peers[j]);
+      __syncwarp();
+    }
+    __syncthreads();
+    int total = 0;  // this thread's node's rows in the sub-block
+    if ((int)threadIdx.x < K) {
+      for (int w = 0; w < kPartWarps; ++w) {
+        const int c = wrank[w * K + threadIdx.x];
+        wrank[w * K + threadIdx.x] = total;
+        total += c;
+      }
+    }
+    int x = total;  // inclusive over the nodes, a warp's lanes first
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) warp_total[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int t = warp_total[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, t, off);
+        if (lane >= off) t += y;
+      }
+      warp_total[lane] = t;
+    }
+    __syncthreads();
+    x += warp > 0 ? warp_total[warp - 1] : 0;
+    if ((int)threadIdx.x < K) {
+      first[threadIdx.x] = x - total;
+      base[threadIdx.x] = next[threadIdx.x];
+      next[threadIdx.x] += total;
+    }
+    if ((int)threadIdx.x == K - 1) first[K] = x;
+    __syncthreads();
+    for (int j = 0; j < m; ++j) {
+      const long long r = s0 + (warp * m + j) * 32 + lane;
+      const unsigned below = peers[j] & ((1u << lane) - 1u);
+      const int slot = nd[j] >= 0 ? first[nd[j]] + wrank[warp * K + nd[j]] + __popc(below) : -1;
+      if (slot >= 0) {
+        slot_node[slot] = nd[j];
+        if (!together)
+          copy_bytes(stage_bins + slot * p.bin_row_bytes, bins + r * p.bin_row_bytes,
+                     p.bin_row_bytes);
+        copy_bytes(stage_g + slot * p.val_bytes, g + r * p.val_bytes, p.val_bytes);
+        copy_bytes(stage_h + slot * p.val_bytes, h + r * p.val_bytes, p.val_bytes);
+      }
+      for (int i0 = 0; i0 < 32 && together; i0 += per_step) {
+        const int at = __shfl_sync(kFull, slot, min(i0 + sub, 31));
+        if (sub < per_step && i0 + sub < 32 && at >= 0)
+          reinterpret_cast<uint32_t*>(stage_bins + at * p.bin_row_bytes)[word] =
+              reinterpret_cast<const uint32_t*>(bins + (r - lane + i0 + sub) *
+                                                           p.bin_row_bytes)[word];
+      }
+      __syncwarp();  // every lane has read its node's rank
+      if (nd[j] >= 0 && below == 0u) wrank[warp * K + nd[j]] += __popc(peers[j]);
+      __syncwarp();
+    }
+    __syncthreads();
+    const int staged = first[K];
+    if (together) {
+      for (int i = threadIdx.x; i < staged * words; i += kPartThreads) {
+        const int slot = i / words, w = i - slot * words, k = slot_node[slot];
+        const long long dst = base[k] + slot - first[k];
+        reinterpret_cast<uint32_t*>(sbins + dst * p.bin_row_bytes)[w] =
+            reinterpret_cast<const uint32_t*>(stage_bins + slot * p.bin_row_bytes)[w];
+      }
+    }
+    for (int slot = threadIdx.x; slot < staged; slot += kPartThreads) {
+      const int k = slot_node[slot];
+      const long long dst = base[k] + slot - first[k];
+      if (!together)
+        copy_bytes(sbins + dst * p.bin_row_bytes, stage_bins + slot * p.bin_row_bytes,
+                   p.bin_row_bytes);
+      copy_bytes(sg + dst * p.val_bytes, stage_g + slot * p.val_bytes, p.val_bytes);
+      copy_bytes(sh + dst * p.val_bytes, stage_h + slot * p.val_bytes, p.val_bytes);
+    }
+  }
+}
+
+// Shared memory of a scatter block staging `stage_rows` rows at K nodes.
+size_t scatter_smem_bytes(int K, int stage_rows, int bin_row_bytes, int val_bytes) {
+  return (size_t)4 * (kPartWarps * K + 3 * K + 1 + stage_rows) +
+         (size_t)(stage_rows * bin_row_bytes + 15) / 16 * 16 + (size_t)2 * stage_rows * val_bytes;
+}
+
+// Count, scan and scatter of one launch: the node offsets and sorted copies.
+int partition_launch(const PartParams& p, int folds, cudaStream_t stream) {
+  const dim3 grid((unsigned)p.blocks, 1, (unsigned)folds);
+  histogram_kernel_partition_count<<<grid, kPartThreads, p.K * sizeof(int), stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  histogram_kernel_partition_scan<<<(unsigned)folds, kPartThreads, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int smem = (int)scatter_smem_bytes(p.K, p.stage_rows, p.bin_row_bytes, p.val_bytes);
+  err = cudaFuncSetAttribute(histogram_kernel_partition_scatter,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  histogram_kernel_partition_scatter<<<grid, kPartThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // ---- leaf sums ----
@@ -751,6 +1213,101 @@ int histogram_launch(int mode, const void* bins, int bin_dtype, long long bins_f
   if (mode == kStats) return dispatch<kStats>(p, bin_dtype, val_dtype, folds, device, st);
   if (mode == kStump) return dispatch<kStump>(p, bin_dtype, val_dtype, folds, device, st);
   return dispatch<kNode>(p, bin_dtype, val_dtype, folds, device, st);
+}
+
+// Node mode's partitioned walk (note 5): the same inputs and output as
+// histogram_launch's node mode (bins [folds, n, F] or shared, int32 node ids,
+// g and h, strides in elements; out [folds, 4, K, F, B], zeroed by the
+// caller), through the caller's scratch: sorted_bins [folds, n_pad, F] of
+// the bins' dtype, sorted_g and sorted_h [folds, n_pad] of the values',
+// counts [folds, K, ceil(n / 16384)] and offsets [folds, K + 1] int32, with
+// n_pad >= n a multiple of 32. stage_rows (1024 or 2048) is a scatter
+// block's sub-block; tile_features x B is a walk CTA's share of one node's
+// cells, block_rows its staged block (ops/cuda_histogram.node_plan).
+// out == nullptr: the partition alone (offsets and sorted copies). Four
+// kernels on `stream` of CUDA device `device`, no synchronisation. Returns
+// 0, a cudaError_t or a kErr* code.
+int node_sorted_launch(const void* bins, int bin_dtype, long long bins_fold_stride,
+                       const void* node, long long node_fold_stride, const void* g,
+                       const void* h, int val_dtype, long long g_fold_stride,
+                       long long h_fold_stride, void* sorted_bins, void* sorted_g,
+                       void* sorted_h, long long n_pad, void* counts, void* offsets, void* out,
+                       long long n, int F, int K, int B, int folds, int stage_rows,
+                       int tile_features, int block_rows, int device, void* stream) {
+  if (bins == nullptr || node == nullptr || g == nullptr || h == nullptr ||
+      sorted_bins == nullptr || sorted_g == nullptr || sorted_h == nullptr ||
+      counts == nullptr || offsets == nullptr || F <= 0 || B <= 0 || K < 1 ||
+      K > kPartMaxNodes || folds <= 0 || folds > kMaxGridYZ || n < 0 || n >= (1LL << 31) ||
+      n_pad < n || n_pad % 32 != 0 || tile_features <= 0 || block_rows <= 0 ||
+      block_rows % 32 != 0 || bin_dtype < 0 || bin_dtype > 1 || val_dtype < 0 || val_dtype > 1 ||
+      stage_rows % kPartThreads != 0 || stage_rows < kPartThreads ||
+      stage_rows > kMaxStageChunks * kPartThreads)
+    return kErrBadArgument;
+  if (n == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (tile_features > F) tile_features = F;
+  const int bin_size = bin_dtype == 0 ? 1 : 4;
+  const int val_size = val_dtype == 0 ? 4 : 8;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  PartParams q = {};
+  q.bins = static_cast<const unsigned char*>(bins);
+  q.node = static_cast<const int32_t*>(node);
+  q.g = static_cast<const unsigned char*>(g);
+  q.h = static_cast<const unsigned char*>(h);
+  q.bins_fold_stride = bins_fold_stride * bin_size;
+  q.node_fold_stride = node_fold_stride * 4;
+  q.g_fold_stride = g_fold_stride * val_size;
+  q.h_fold_stride = h_fold_stride * val_size;
+  q.sorted_bins = static_cast<unsigned char*>(sorted_bins);
+  q.sorted_g = static_cast<unsigned char*>(sorted_g);
+  q.sorted_h = static_cast<unsigned char*>(sorted_h);
+  q.counts = static_cast<int*>(counts);
+  q.offsets = static_cast<int*>(offsets);
+  q.n = n;
+  q.n_pad = n_pad;
+  q.K = K;
+  q.blocks = (int)((n + kPartRows - 1) / kPartRows);
+  q.bin_row_bytes = F * bin_size;
+  q.val_bytes = val_size;
+  q.stage_rows = stage_rows;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  if (scatter_smem_bytes(K, stage_rows, q.bin_row_bytes, val_size) + kScatterStaticBytes >
+      (size_t)optin)
+    return kErrSharedMemory;
+  int code = partition_launch(q, folds, st);
+  if (code != 0 || out == nullptr) return code;
+
+  // The walk reads the sorted copies: bins, no key, g, h.
+  Params p = {};
+  const void* ptrs[kStreams] = {sorted_bins, nullptr, sorted_g, sorted_h};
+  const int row_bytes[kStreams] = {F * bin_size, 0, val_size, val_size};
+  int off = 0;
+  for (int i = 0; i < kStreams; ++i) {
+    Stream& s = p.stream[i];
+    s.base = static_cast<const unsigned char*>(ptrs[i]);
+    s.row_bytes = row_bytes[i];
+    s.fold_stride = n_pad * row_bytes[i];
+    s.smem_off = off;
+    off += (block_rows * s.row_bytes + 15) / 16 * 16;
+  }
+  p.stage_bytes = off;
+  p.out = out;
+  p.out_fold_stride = 4LL * K * F * B;
+  p.n = n;
+  p.F = F;
+  p.S = 4;
+  p.KB = B;  // a CTA's cells are one node's
+  p.B = B;
+  p.K = K;
+  p.tile_features = tile_features;
+  p.tile_cells = B;
+  p.block_rows = block_rows;
+  p.offsets = q.offsets;
+  return dispatch<kSorted>(p, bin_dtype, val_dtype, folds, device, st);
 }
 
 // out[0, k, s] and out[1, k, s]: the float64 sums of g[k, r] and h[k, r]

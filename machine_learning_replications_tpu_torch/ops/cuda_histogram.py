@@ -13,8 +13,8 @@ entry modes that differ only in how a row's statistics are formed:
     kernel reads ``grad`` and ``hess`` as two columns;
   * ``node_histograms_cuda``: S=4 per (node, feature, bin), the level-wise
     grower's pass; the kernel reads ``node_local``, ``grad`` and ``hess``,
-    forms (g·a, h·a, g²·a, a) with a = [node ≥ 0] and the node's cell offset
-    itself, and writes the ``[K, F, B]`` statistics directly.
+    forms (g·a, h·a, g²·a, a) with a = [0 ≤ node < K] and the node's cell
+    offset itself, and writes the ``[K, F, B]`` statistics directly.
 
 Beside it, ``leaf_sums_cuda`` launches the grower's leaf-sum reduction
 (the same source, design notes at its ``leaf sums`` section): per fit and
@@ -24,9 +24,28 @@ every call.
 A warp takes 32 rows and steps over a tile's features; lanes whose cell is
 equal sum their statistics by shuffles and one lane adds them with one
 shared atomic per statistic. Row blocks are staged into shared memory by
-``cp.async.bulk`` in a two-stage ring. ``tile_plan`` (plain Python, tested
-on the CPU) cuts the ``[F, K·B]`` cells into tiles that fit one CTA's shared
-memory beside that ring, and picks the block's row count.
+``cp.async.bulk`` in a two-stage ring. The bound is one read of the inputs
+and one write of the output (at depth 8's last level on the HIGGS
+configuration's 10.5M x 28 rows, 435 MB: 0.13 ms on an H100).
+
+Two walks (``csrc/histogram.cu`` notes 4 and 5). The tiled walk cuts the
+``[F, K·B]`` cells into tiles that fit one CTA's shared memory beside the
+ring (``tile_plan``, plain Python tested on the CPU), and every tile reads
+every row again: one node's cells of one feature are 4 KB in float32, so at
+K nodes a feature is 4·K KB, and at F = 28 the levels of a depth-8 tree
+took 1, 1, 2, 4, 10, 28, 56 and 84 passes over the rows where one is work,
+levels 1-3 in 32-row blocks. The partitioned walk first counting-sorts the
+level's rows by node on the card (count, scan and scatter kernels into a
+scratch copy of the rows' bins, g and h: about 80 bytes a row read and
+written, 0.25 ms a level at 10.5M x 28 by the bytes, 0.8-1.1 ms measured on
+an H100) and then walks
+each node's rows once, a CTA holding all of one node's features (114.7 KB
+at F = 28) beside a ring of 1024-row blocks: one pass whatever K is.
+``node_plan`` picks the walk from the launch's shape: the partitioned walk
+for one fit where K ≥ 2 and the tiled plan takes more than two passes or
+stages fewer rows a block; the tiled walk for a level of one node, fold
+launches, the stump and stats entries, and plans of at most two passes of
+full blocks (depth 3's levels at 17 features).
 
 Build: on first use ``nvcc`` compiles the source for ``sm_90a`` into a
 shared library with a plain C interface under ``build/torch_ext/`` of the
@@ -38,10 +57,13 @@ Dispatch: a wrapper given CPU tensors computes the plain PyTorch version
 ``ops.histogram.leaf_sums``); given
 CUDA tensors it launches the kernel or raises. A failed build or launch
 propagates, never falls back. ``LAUNCHES`` counts, per wrapper, the kernel
-launches it made (nothing else), so a run can show that its main path went
-through the kernel; ``ROW_PASSES`` counts, per wrapper, how often those
-launches walked their rows: a histogram launch walks them once per tile of
-its plan (``row_passes``), a leaf-sum launch once per tile of ``LEAF_TILE``
+launches it made (nothing else; a node call is one launch whichever walk it
+takes), so a run can show that its main path went through the kernel;
+``LAUNCHES["node_partition"]`` counts the node calls that partitioned.
+``ROW_PASSES`` counts, per wrapper, how often those launches walked their
+rows: a histogram launch walks them once per tile of its plan
+(``node_row_passes``: a partitioned launch once per feature tile of one
+node), a partition once, a leaf-sum launch once per tile of ``LEAF_TILE``
 segments (``leaf_row_passes``). Each launch and each build also counts in
 ``obs.torchmon``'s ``torch_kernel_launches_total{kernel}``,
 ``torch_kernel_row_passes_total{kernel}`` and ``torch_kernel_builds_total``
@@ -59,6 +81,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -81,9 +104,20 @@ BLOCK_ROWS = (1024, 512, 256, 128, 64, 32)
 # (csrc/histogram.cu: kLeafThreads, kLeafTile).
 LEAF_THREADS = 256
 LEAF_TILE = 16
+# The partition's rows a count or scatter block, the most nodes a scatter
+# block scans, its warps, and the rows a scatter sub-block may stage, largest
+# first (csrc/histogram.cu: kPartRows, kPartMaxNodes, kPartWarps,
+# kMaxStageChunks).
+PARTITION_ROWS = 16384
+PARTITION_MAX_NODES = 1024
+PARTITION_WARPS = 32
+STAGE_ROWS = (2048, 1024)
+# The most passes of full blocks for which the node entry keeps the tiled walk
+# (node_plan; measured at depth 3's last level, PERF.md §6).
+TILED_PASSES_KEPT = 2
 
 LAUNCHES = {"stump_histograms": 0, "node_histograms": 0, "stats_histograms": 0,
-            "leaf_sums": 0}
+            "leaf_sums": 0, "node_partition": 0}
 ROW_PASSES = dict.fromkeys(LAUNCHES, 0)
 build_log: list[str] = []  # nvcc's output (ptxas register/smem report)
 
@@ -156,6 +190,14 @@ def _library() -> ctypes.CDLL:
         ll, i, i, i, p,       # n, folds, segs, device, stream
     ]
     lib.leaf_sums_launch.restype = i
+    lib.node_sorted_launch.argtypes = [
+        p, i, ll, p, ll,      # bins, bin dtype, fold stride; node ids, fold stride
+        p, p, i, ll, ll,      # g, h, value dtype, their fold strides
+        p, p, p, ll, p, p,    # sorted bins, g, h, their padded rows, counts, offsets
+        p, ll, i, i, i, i,    # out (None: the partition alone), n, F, K, B, folds
+        i, i, i, i, p,        # stage rows, tile features, block rows, device, stream
+    ]
+    lib.node_sorted_launch.restype = i
     lib.histogram_smem_budget.argtypes = [i]
     lib.histogram_smem_budget.restype = i
     lib.histogram_error_string.argtypes = [i]
@@ -189,6 +231,7 @@ def _cell_tiles(F: int, S: int, kb: int, itemsize: int, room: int) -> tuple[int,
     return 1, -(-kb // tiles)
 
 
+@functools.lru_cache(maxsize=1024)
 def tile_plan(F: int, S: int, kb: int, itemsize: int, budget: int,
               row_bytes: tuple[int, ...]) -> tuple[int, int, int]:
     """``(tile_features, tile_cells, block_rows)`` for one launch.
@@ -199,7 +242,8 @@ def tile_plan(F: int, S: int, kb: int, itemsize: int, budget: int,
     the segment or node id's, the statistics') and the ring's barriers, all
     within ``budget``. Of the row counts in ``BLOCK_ROWS``, the plan takes
     the one that leaves the fewest tiles (each tile re-walks every row), and
-    of those the largest (fewer ring turns)."""
+    of those the largest (fewer ring turns). Plans are kept per shape: a
+    fit asks for the same few on every launch."""
     best = None
     for rows in BLOCK_ROWS:
         room = budget - BARRIER_BYTES - STAGES * stage_bytes(rows, row_bytes)
@@ -213,6 +257,78 @@ def tile_plan(F: int, S: int, kb: int, itemsize: int, budget: int,
         raise ValueError(f"{S} statistics of {itemsize} bytes do not fit {budget} bytes "
                          f"beside the staging ring")
     return best[1:]
+
+
+class NodePlan(NamedTuple):
+    """One node launch's walk: ``partitioned`` (rows sorted by node, each CTA
+    holding ``tile_features`` whole features of one node, ``tile_cells`` =
+    B; the scatter staging ``stage_rows`` rows a sub-block) or tiled
+    (``tile_plan``'s tiles of the ``[F, K·B]`` cells), and its staged
+    block's rows."""
+    partitioned: bool
+    tile_features: int
+    tile_cells: int
+    block_rows: int
+    stage_rows: int = 0
+
+
+def scatter_smem(K: int, stage_rows: int, bin_row_bytes: int, val_bytes: int) -> int:
+    """Shared memory of a scatter block (``csrc/histogram.cu``'s
+    ``scatter_smem_bytes`` and its static warp totals): per-warp ranks, four
+    per-node arrays, the slots' nodes and the staged rows."""
+    staged_bins = -(-stage_rows * bin_row_bytes // 16) * 16
+    return (4 * (PARTITION_WARPS * K + 3 * K + 1 + stage_rows) + staged_bins
+            + 2 * stage_rows * val_bytes + 4 * PARTITION_WARPS)
+
+
+def partitioned_plan(F: int, K: int, B: int, itemsize: int, budget: int,
+                     bin_itemsize: int) -> "NodePlan | None":
+    """The partitioned walk's plan: the walk's, ``tile_plan``'s at one node
+    (cells of B bins) without the node-id stream, and the most rows of
+    ``STAGE_ROWS`` a scatter block stages within ``budget``; None where one
+    node's cells of a single feature or the scatter's least sub-block are
+    over a CTA."""
+    try:
+        tf, tc, rows = tile_plan(F, 4, B, itemsize, budget, (F * bin_itemsize, itemsize, itemsize))
+    except ValueError:
+        return None
+    stage = [r for r in STAGE_ROWS if scatter_smem(K, r, F * bin_itemsize, itemsize) <= budget]
+    return NodePlan(True, tf, tc, rows, stage[0]) if tc == B and stage else None
+
+
+@functools.lru_cache(maxsize=1024)
+def node_plan(F: int, K: int, B: int, itemsize: int, budget: int, bin_itemsize: int,
+              folds: int = 1) -> NodePlan:
+    """The node entry's walk for ``folds`` fits of K nodes of B bins over F
+    features.
+
+    The tiled walk re-reads every row once per tile, and where its tiles fit
+    they may leave the ring little room; the partitioned walk sorts the rows
+    by node first (count, scan and scatter kernels: 0.8-1.1 ms at 10.5M x 28
+    on an H100) and then holds one node's cells at a time. It is taken for
+    one fit (a fold launch's rows are few: at 5 x 50,000 rows the partition
+    alone takes twice the tiled walk), where there are nodes to sort (2 ≤ K ≤
+    ``PARTITION_MAX_NODES``), a node's whole feature fits one CTA, and the
+    tiled plan takes more than ``TILED_PASSES_KEPT`` passes or stages fewer
+    rows a block. Everything else keeps the tiled walk: a level of one node,
+    fold launches, and depth 3's levels at 17 features, where two tiled
+    passes of 10M rows (1.87 ms) beat the partition and one pass (2.52 ms)."""
+    tiled = NodePlan(False, *tile_plan(F, 4, K * B, itemsize, budget,
+                                       (F * bin_itemsize, 4, itemsize, itemsize)))
+    if folds != 1 or not 2 <= K <= PARTITION_MAX_NODES:
+        return tiled
+    part = partitioned_plan(F, K, B, itemsize, budget, bin_itemsize)
+    passes = row_passes(F, K * B, tiled.tile_features, tiled.tile_cells)
+    if part and (passes > TILED_PASSES_KEPT or tiled.block_rows < part.block_rows):
+        return part
+    return tiled
+
+
+def node_row_passes(F: int, K: int, B: int, plan: NodePlan) -> int:
+    """Passes over its rows of a node launch: a partitioned launch walks its
+    sorted rows once per feature tile of one node, a tiled one once per
+    tile of its ``[F, K·B]`` cells."""
+    return row_passes(F, B if plan.partitioned else K * B, plan.tile_features, plan.tile_cells)
 
 
 def row_passes(F: int, kb: int, tile_features: int, tile_cells: int) -> int:
@@ -240,18 +356,11 @@ def _fold_stride(t: torch.Tensor, name: str, inner: int, k: "int | None") -> int
     return t.stride(0) if t.dim() == inner + 1 else 0
 
 
-def _launch(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.Tensor,
-            b: "torch.Tensor | None", S: int, kb: int, B: int, counter: str) -> torch.Tensor:
-    """Checks, allocates the zeroed output, launches once and adds one to
-    ``LAUNCHES[counter]`` and the plan's tiles to ``ROW_PASSES[counter]``.
-    Returns ``[k, S, F, kb]`` (``[k, 4, K, F, B]`` in node mode) with k = 1
-    where ``a`` has no fold axis.
-
-    ``bins [n, F]`` (shared by every fold) or ``[k, n, F]``; ``key``: the
-    int32 segment offsets ``[(k,) n]`` (stats mode), the int32 node ids
-    (node mode) or None (stump mode); ``a``: the values
-    ``[(k,) n, S]`` (stats mode) or ``grad [(k,) n]``; ``b``: ``hess`` like
-    ``grad`` (stump and node modes)."""
+def _checked(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.Tensor,
+             b: "torch.Tensor | None", S: int, kb: int) -> tuple:
+    """The kernel's checks of one launch's inputs → ``(k, n, F, strides,
+    row_bytes)``: k the fold count (None without a fold axis), each input's
+    fold stride in elements and the staged per-row inputs' bytes."""
     row_dims = 2 if mode == "stats" else 1
     k = a.shape[0] if a.dim() == row_dims + 1 else None
     dev = bins.device
@@ -288,23 +397,81 @@ def _launch(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.
         a.element_size() * (S if mode == "stats" else 1),
         0 if b is None else b.element_size(),
     ) if x)
+    return k, n, F, strides, row_bytes
+
+
+def _sorted(lib, bins: torch.Tensor, node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+            strides: dict, out: "torch.Tensor | None", k: int, n: int, F: int, K: int, B: int,
+            plan: NodePlan) -> tuple:
+    """One call of the partitioned walk's C entry (the partition alone where
+    ``out`` is None) through fresh scratch → ``(code, sorted bins, sorted g,
+    sorted h, offsets)``; the sorted copies are ``[k, n_pad, ...]``."""
+    dev = bins.device
+    n_pad = -(-n // 32) * 32
+    sbins = torch.empty((k, n_pad, F), dtype=bins.dtype, device=dev)
+    sg = torch.empty((k, n_pad), dtype=g.dtype, device=dev)
+    sh = torch.empty((k, n_pad), dtype=g.dtype, device=dev)
+    counts = torch.empty((k, K, -(-n // PARTITION_ROWS)), dtype=torch.int32, device=dev)
+    offsets = torch.zeros((k, K + 1), dtype=torch.int32, device=dev)
+    code = lib.node_sorted_launch(
+        bins.data_ptr(), _BIN_CODES[bins.dtype], strides["bins"],
+        node.data_ptr(), strides["key"],
+        g.data_ptr(), h.data_ptr(), _VAL_CODES[g.dtype], strides["a"], strides["b"],
+        sbins.data_ptr(), sg.data_ptr(), sh.data_ptr(), n_pad, counts.data_ptr(),
+        offsets.data_ptr(), None if out is None else out.data_ptr(),
+        n, F, K, B, k, plan.stage_rows, plan.tile_features, plan.block_rows,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return code, sbins, sg, sh, offsets
+
+
+def _raise_on(lib, code: int) -> None:
+    if code != 0:
+        msg = lib.histogram_error_string(code).decode()
+        raise RuntimeError(f"histogram kernel launch failed ({code}): {msg}")
+
+
+def _launch(mode: str, bins: torch.Tensor, key: "torch.Tensor | None", a: torch.Tensor,
+            b: "torch.Tensor | None", S: int, kb: int, B: int, counter: str) -> torch.Tensor:
+    """Checks, allocates the zeroed output, launches once and adds one to
+    ``LAUNCHES[counter]`` and the plan's passes to ``ROW_PASSES[counter]``;
+    a node launch that ``node_plan`` partitions also adds one to
+    ``LAUNCHES["node_partition"]``. Returns ``[k, S, F, kb]`` (``[k, 4, K,
+    F, B]`` in node mode) with k = 1 where ``a`` has no fold axis.
+
+    ``bins [n, F]`` (shared by every fold) or ``[k, n, F]``; ``key``: the
+    int32 segment offsets ``[(k,) n]`` (stats mode), the int32 node ids
+    (node mode) or None (stump mode); ``a``: the values
+    ``[(k,) n, S]`` (stats mode) or ``grad [(k,) n]``; ``b``: ``hess`` like
+    ``grad`` (stump and node modes)."""
+    k, n, F, strides, row_bytes = _checked(mode, bins, key, a, b, S, kb)
+    dev = bins.device
+    K = kb // B
     lib = _library()
     with torch.cuda.device(dev):
-        tile_f, tile_c, rows = tile_plan(F, S, kb, a.element_size(), smem_budget(dev), row_bytes)
-        shape = (k or 1, 4, kb // B, F, B) if mode == "node" else (k or 1, S, F, kb)
+        budget = smem_budget(dev)
+        if mode == "node":
+            plan = node_plan(F, K, B, a.element_size(), budget, bins.element_size(), k or 1)
+        else:
+            plan = NodePlan(False, *tile_plan(F, S, kb, a.element_size(), budget, row_bytes))
+        shape = (k or 1, 4, K, F, B) if mode == "node" else (k or 1, S, F, kb)
         out = torch.zeros(shape, dtype=a.dtype, device=dev)
-        code = lib.histogram_launch(
-            _MODES[mode], bins.data_ptr(), _BIN_CODES[bins.dtype], strides["bins"],
-            None if key is None else key.data_ptr(), strides["key"],
-            a.data_ptr(), None if b is None else b.data_ptr(), _VAL_CODES[a.dtype],
-            strides["a"], strides["b"],
-            out.data_ptr(), n, F, S, kb, B, k or 1, tile_f, tile_c, rows,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if code != 0:
-            msg = lib.histogram_error_string(code).decode()
-            raise RuntimeError(f"histogram kernel launch failed ({code}): {msg}")
-    _count(counter, row_passes(F, kb, tile_f, tile_c))
+        if plan.partitioned:
+            code = _sorted(lib, bins, key, a, b, strides, out, k or 1, n, F, K, B, plan)[0]
+        else:
+            code = lib.histogram_launch(
+                _MODES[mode], bins.data_ptr(), _BIN_CODES[bins.dtype], strides["bins"],
+                None if key is None else key.data_ptr(), strides["key"],
+                a.data_ptr(), None if b is None else b.data_ptr(), _VAL_CODES[a.dtype],
+                strides["a"], strides["b"],
+                out.data_ptr(), n, F, S, kb, B, k or 1, plan.tile_features, plan.tile_cells,
+                plan.block_rows, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on(lib, code)
+    _count(counter, node_row_passes(F, K, B, plan) if mode == "node"
+           else row_passes(F, kb, plan.tile_features, plan.tile_cells))
+    if plan.partitioned:
+        _count("node_partition", 1)
     return out
 
 
@@ -355,6 +522,31 @@ def node_histograms_cuda(binned: torch.Tensor, node_local: torch.Tensor, grad: t
     out = _launch("node", binned, node_local, grad.to(dtype), hess.to(dtype), 4, K * B, B,
                   "node_histograms")                          # [k, 4, K, F, B]
     return histogram.NodeHistograms(*(out if node_local.dim() == 2 else out[0]).unbind(-4))
+
+
+def node_partition_cuda(binned: torch.Tensor, node_local: torch.Tensor, grad: torch.Tensor,
+                        hess: torch.Tensor, n_nodes: int) -> histogram.Partition:
+    """The partitioned walk's first step alone (its count, scan and scatter
+    kernels) → ``histogram.Partition``: ``[k, n, ...]`` copies of the active
+    rows sorted by node and the ``[k, n_nodes + 1]`` offsets, k = 1 without a
+    fold axis; on CPU tensors the plain ``histogram.node_partition``. Past a
+    fit's ``offsets[:, -1]`` rows the copies hold what the scratch held. One
+    call adds one to ``LAUNCHES["node_partition"]``."""
+    if binned.device.type == "cpu":
+        return histogram.node_partition(binned, node_local, grad, hess, n_nodes)
+    k, n, F, strides, _ = _checked("node", binned, node_local, grad, hess, 4, n_nodes)
+    lib = _library()
+    with torch.cuda.device(binned.device):
+        plan = partitioned_plan(F, n_nodes, 1, grad.element_size(), smem_budget(binned.device),
+                                binned.element_size())
+        if plan is None:
+            raise ValueError(f"a scatter block of {n_nodes} nodes and {F} features does not "
+                             f"fit the shared memory")
+        code, sbins, sg, sh, offsets = _sorted(lib, binned, node_local, grad, hess, strides,
+                                               None, k or 1, n, F, n_nodes, 1, plan)
+        _raise_on(lib, code)
+    _count("node_partition", 1)
+    return histogram.Partition(sbins[:, :n], sg[:, :n], sh[:, :n], offsets)
 
 
 def leaf_scratch(k: int, segs: int, dev: torch.device) -> int:

@@ -224,6 +224,65 @@ def node_histograms(
     return NodeHistograms(*stats.unbind(0))
 
 
+class Partition(NamedTuple):
+    bins: torch.Tensor     # [k, n, F] the active rows' bins in node order, then filler
+    grad: torch.Tensor     # [k, n]
+    hess: torch.Tensor     # [k, n]
+    offsets: torch.Tensor  # [k, K + 1] int32: node j's rows are [offsets[j], offsets[j + 1])
+
+
+def partition_rows(node_local: torch.Tensor, n_nodes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A level's rows counting-sorted by node (``[n]`` or ``[k, n]`` ids; −1,
+    or any id outside ``[0, n_nodes)``, parks a row) → ``(order, offsets)``
+    with a fit axis: ``order [k, n]`` (int64) lists each fit's active rows
+    node by node and, within a node, in row order, then −1 in the parked
+    rows' places; ``offsets [k, n_nodes + 1]`` (int32) is where each node's
+    rows start, its last entry the active rows' count. The plain version of
+    the node kernel's partition (``cuda_histogram.node_partition_cuda``)."""
+    node = node_local[None] if node_local.dim() == 1 else node_local
+    k, n = node.shape
+    order = torch.full((k, n), -1, dtype=torch.long, device=node.device)
+    offsets = torch.zeros((k, n_nodes + 1), dtype=torch.int32, device=node.device)
+    for f in range(k):
+        rows = [torch.nonzero(node[f] == j).flatten() for j in range(n_nodes)]
+        sizes = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+        offsets[f, 1:] = torch.cumsum(sizes, 0).to(offsets.device)
+        active = torch.cat(rows)
+        order[f, :active.numel()] = active
+    return order, offsets
+
+
+def node_partition(binned: torch.Tensor, node_local: torch.Tensor, grad: torch.Tensor,
+                   hess: torch.Tensor, n_nodes: int) -> Partition:
+    """Copies of the active rows' bins, grad and hess in ``partition_rows``'
+    order (zeros in the parked rows' places), with its offsets; ``binned``
+    ``[n, F]`` is shared by the fits, ``[k, n, F]`` one per fit."""
+    order, offsets = partition_rows(node_local, n_nodes)
+    k, n = order.shape
+    keep = order >= 0
+    at = order.clamp_min(0)
+
+    def take(t: torch.Tensor) -> torch.Tensor:                # [k, n] or [k, n, F]
+        if t.dim() == 2:
+            return torch.where(keep, torch.gather(t, 1, at), 0)
+        idx = at[..., None].expand(k, n, t.shape[-1])
+        return torch.where(keep[..., None], torch.gather(t, 1, idx), 0)
+
+    bins = binned.expand(k, *binned.shape[-2:])
+    return Partition(take(bins), take(grad.expand(k, n)), take(hess.expand(k, n)), offsets)
+
+
+def sorted_node_histograms(part: Partition, n_nodes: int, max_bins: int) -> NodeHistograms:
+    """The partitioned walk's sums: ``node_histograms`` over the sorted rows,
+    each row's node read from the offsets (rows past the last offset
+    parked) → ``[k, K, F, B]`` each."""
+    k, n = part.grad.shape
+    pos = torch.arange(n, device=part.offsets.device).expand(k, n).contiguous()
+    node = torch.searchsorted(part.offsets[:, 1:].long().contiguous(), pos, right=True)
+    node = torch.where(node < n_nodes, node, -1).to(torch.int32)
+    return node_histograms(part.bins, node, part.grad, part.hess, n_nodes, max_bins)
+
+
 def leaf_sums(node: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor, k: int,
               n_nodes: int) -> torch.Tensor:
     """Per-(fit, final node) float64 sums of ``grad`` and ``hess`` [k, n] →

@@ -215,6 +215,123 @@ def test_node_plan_row_passes_at_depth8_widths(level):
     assert sum(PASSES_PER_LEVEL) == 186
 
 
+@pytest.mark.parametrize("level", range(DEPTH))
+def test_node_walk_choice_at_depth8_widths(level):
+    """The node entry's walk at F = 28: levels 1-7 sort their rows by node and
+    walk them once, in 1024-row blocks with all 28 features of one node held
+    (114.7 KB); the root level keeps the tiled walk's one pass."""
+    F, K = 28, 2 ** level
+    plan = cuda_histogram.node_plan(F, K, B, 4, H100_SMEM, 1)
+    assert plan.partitioned == (level >= 1)
+    assert cuda_histogram.node_row_passes(F, K, B, plan) == 1
+    assert (plan.tile_features, plan.tile_cells, plan.block_rows) == (F, B, 1024)
+    assert 4 * F * B * 4 == 114_688
+    if plan.partitioned:   # the scatter stages 2048-row sub-blocks, two blocks an SM
+        assert plan.stage_rows == 2048
+        assert 2 * cuda_histogram.scatter_smem(K, 2048, F, 4) <= 228 * 1024
+
+
+@pytest.mark.parametrize("K,itemsize,folds,partitioned", [
+    (1, 4, 1, False),   # depth 3's root: one node
+    (2, 4, 1, False),   # one pass in 1024-row blocks either way
+    (4, 4, 1, False),   # the last level: two tiled passes of full blocks
+    (2, 8, 1, False),   # float64: two passes of full blocks
+    (4, 8, 1, True),    # float64: three passes
+    (4, 4, 5, False),   # the 5-fold fits: fold launches stay tiled
+    (4, 8, 5, False),
+])
+def test_node_walk_choice_at_depth3_widths(K, itemsize, folds, partitioned):
+    """At the cohort's 17 features the tiled walk stays where its plan is at
+    most two passes of 1024-row blocks (depth 3's last level: 1.86 ms tiled
+    against 2.52 ms partitioned at 10M rows on an H100) and for fold
+    launches; a partitioned plan is one pass."""
+    plan = cuda_histogram.node_plan(17, K, B, itemsize, H100_SMEM, 1, folds)
+    assert plan.partitioned == partitioned
+    if partitioned:
+        assert cuda_histogram.node_row_passes(17, K, B, plan) == 1
+
+
+def test_node_walk_choice_keeps_the_tiled_walk_where_it_cannot_partition():
+    """Past ``PARTITION_MAX_NODES`` nodes, or where one feature's cells of one
+    node are over a CTA (int32 bins of 40,000 values), the tiled walk stays."""
+    many = cuda_histogram.PARTITION_MAX_NODES * 2
+    assert not cuda_histogram.node_plan(28, many, B, 4, H100_SMEM, 1).partitioned
+    wide = cuda_histogram.node_plan(3, 4, 40_000, 4, H100_SMEM, 4)
+    assert not wide.partitioned and wide.tile_cells < 4 * 40_000
+    assert cuda_histogram.partitioned_plan(3, 4, 40_000, 4, H100_SMEM, 4) is None
+    # 64 int32 bins and float64 values: a 1024-row scatter sub-block is 283 KB
+    assert cuda_histogram.partitioned_plan(64, 2, B, 8, H100_SMEM, 4) is None
+    assert cuda_histogram.partitioned_plan(28, 2, B, 8, H100_SMEM, 4).stage_rows == 1024
+
+
+def _stable_order(node, K):
+    """The active rows of each fit by node, in row order: ``torch.argsort``
+    (stable) of the node ids with parked rows keyed last."""
+    key = torch.where((node >= 0) & (node < K), node.long(), K)
+    return torch.argsort(key, dim=-1, stable=True)
+
+
+@pytest.mark.parametrize("case", ["one_fit", "folds", "empty_nodes", "all_parked", "foreign_ids"])
+def test_partition_rows_is_a_stable_counting_sort(case):
+    """``histogram.partition_rows`` against a stable ``argsort``: each node's
+    rows in row order, the ``[K + 1]`` offsets, parked rows (−1 or an id
+    outside ``[0, K)``) dropped, empty nodes, a fit with every row parked, a
+    fold axis."""
+    gen = torch.Generator().manual_seed(2**31 + 30)
+    K, n = 16, 3001
+    node = torch.randint(-1, K, (1 if case == "one_fit" else 4, n), generator=gen,
+                         dtype=torch.int32)
+    if case == "empty_nodes":
+        node = torch.where((node == 3) | (node == K - 1), -1, node)
+    elif case == "all_parked":
+        node[2] = -1
+    elif case == "foreign_ids":
+        node[:, ::7] = K + 5
+    order, offsets = histogram.partition_rows(node[0] if case == "one_fit" else node, K)
+    assert order.shape == node.shape and offsets.shape == (node.shape[0], K + 1)
+    assert offsets.dtype == torch.int32
+    want = _stable_order(node, K)
+    for f in range(node.shape[0]):
+        active = (node[f] >= 0) & (node[f] < K)
+        total = int(offsets[f, -1])
+        assert total == int(active.sum())
+        assert torch.equal(order[f, :total], want[f, :total])
+        assert bool((order[f, total:] == -1).all())
+        sizes = torch.bincount(node[f][active].long(), minlength=K)
+        assert torch.equal(offsets[f].diff().long(), sizes)
+        assert int(offsets[f, 0]) == 0
+    if case == "empty_nodes":
+        assert bool((offsets[:, 4] == offsets[:, 3]).all())
+    if case == "all_parked":
+        assert not bool(offsets[2].any())
+
+
+@pytest.mark.parametrize("K,folds,fold_bins", [(2, None, False), (16, 3, False), (128, 2, True)])
+def test_sums_over_sorted_rows_equal_node_histograms(K, folds, fold_bins):
+    """``node_partition`` (the rows' bins, g and h copied in that order) then
+    ``sorted_node_histograms`` (each node's segment summed) give
+    ``node_histograms`` of the unsorted rows: counts equal, sums within
+    float64 rounding."""
+    rng = np.random.default_rng(K)
+    n, F = 2003, 5
+    lead = () if folds is None else (folds,)
+    binned = torch.as_tensor(rng.integers(0, B, size=lead * fold_bins + (n, F)).astype(np.uint8))
+    node = torch.as_tensor(rng.integers(-1, K, size=lead + (n,)).astype(np.int32))
+    g = torch.as_tensor(rng.normal(size=lead + (n,)))
+    h = torch.as_tensor(rng.uniform(0, 0.25, size=lead + (n,)))
+    part = histogram.node_partition(binned, node, g, h, K)
+    got = histogram.sorted_node_histograms(part, K, B)
+    want = histogram.node_histograms(binned, node[None] if folds is None else node,
+                                     g.expand(1, n) if folds is None else g,
+                                     h.expand(1, n) if folds is None else h, K, B)
+    assert torch.equal(got.count, want.count)
+    for stat in ("grad", "hess", "grad2"):
+        torch.testing.assert_close(getattr(got, stat), getattr(want, stat), rtol=1e-12,
+                                   atol=1e-12)
+    assert torch.equal(cuda_histogram.node_partition_cuda(binned, node, g, h, K).offsets,
+                       part.offsets)
+
+
 @pytest.mark.parametrize("depth,passes", [(1, 1), (3, 1), (4, 2), (8, 32)])
 def test_leaf_row_passes_by_depth(depth, passes):
     """The leaf-sum kernel walks its rows once per 16 of the tree's
@@ -259,8 +376,9 @@ def cuda_device():
 @pytest.mark.cuda
 def test_node_kernel_at_k128_f28_matches_plain(cuda_device):
     """Depth 8's last level: 128 nodes of 28 features and 256 bins, one
-    launch of 84 cell-range tiles; counts exactly equal, the float32 sums
-    within 1e-5 of each cell's absolute mass (plus 1e-4)."""
+    launch that sorts the rows by node and walks them once (one feature
+    tile); counts exactly equal, the float32 sums within 1e-5 of each cell's
+    absolute mass (plus 1e-4)."""
     rng = np.random.default_rng(128)
     n, F, K = 300_000, 28, 128
     binned = torch.as_tensor(rng.integers(0, B, size=(n, F)).astype(np.uint8), device=cuda_device)
@@ -269,10 +387,12 @@ def test_node_kernel_at_k128_f28_matches_plain(cuda_device):
     h = torch.as_tensor(rng.uniform(0, 0.25, size=n).astype(np.float32), device=cuda_device)
     launches, passes = cuda_histogram.LAUNCHES["node_histograms"], \
         cuda_histogram.ROW_PASSES["node_histograms"]
+    partitions = cuda_histogram.LAUNCHES["node_partition"]
     got = cuda_histogram.node_histograms_cuda(binned, node, g, h, K, B)
     torch.cuda.synchronize()
     assert cuda_histogram.LAUNCHES["node_histograms"] == launches + 1
-    assert cuda_histogram.ROW_PASSES["node_histograms"] == passes + 84
+    assert cuda_histogram.ROW_PASSES["node_histograms"] == passes + 1
+    assert cuda_histogram.LAUNCHES["node_partition"] == partitions + 1
     want = histogram.node_histograms(binned, node, g.double(), h.double(), K, B)
     mass = histogram.node_histograms(binned, node, g.double().abs(), h.double(), K, B)
     assert torch.equal(got.count.double(), want.count)
@@ -306,18 +426,101 @@ def test_leaf_sums_kernel_at_512_segments(cuda_device):
 @pytest.mark.cuda
 def test_row_passes_of_one_depth8_stage(cuda_device):
     """One depth-8 stage of the HIGGS configuration's widths on the card:
-    8 node launches of 186 row passes in all, one leaf-sum launch of 32,
-    the same in ``torch_kernel_row_passes_total``."""
+    8 node launches of 8 row passes in all (levels 1-7 partitioned: 7
+    ``node_partition`` launches), one leaf-sum launch of 32, the same in
+    ``torch_kernel_row_passes_total`` and ``torch_kernel_launches_total``."""
     X, y = _higgs(200_000, 2**31 + 21, cuda_device)
     torchmon.install()
-    before = torchmon.totals()["torch_kernel_row_passes_total"]
+    before = torchmon.totals()
     cuda_histogram.reset_launch_counts()
     gbdt.fit(X, y, _cfg(1), device=cuda_device)
     torch.cuda.synchronize()
     assert cuda_histogram.LAUNCHES["node_histograms"] == DEPTH
-    assert cuda_histogram.ROW_PASSES["node_histograms"] == 186
+    assert cuda_histogram.ROW_PASSES["node_histograms"] == 8
+    assert cuda_histogram.LAUNCHES["node_partition"] == DEPTH - 1
     assert cuda_histogram.LAUNCHES["leaf_sums"] == 1
     assert cuda_histogram.ROW_PASSES["leaf_sums"] == 32
-    after = torchmon.totals()["torch_kernel_row_passes_total"]
-    for kernel, want in (("node_histograms", 186), ("leaf_sums", 32)):
-        assert after.get(kernel, 0) - before.get(kernel, 0) == want
+    after = torchmon.totals()
+    for kernel, want in (("node_histograms", 8), ("leaf_sums", 32)):
+        passes = after["torch_kernel_row_passes_total"]
+        assert passes.get(kernel, 0) - before["torch_kernel_row_passes_total"].get(kernel, 0) \
+            == want
+    launched = after["torch_kernel_launches_total"]
+    assert launched.get("node_partition", 0) - before["torch_kernel_launches_total"].get(
+        "node_partition", 0) == DEPTH - 1
+
+
+def _level_inputs(seed, n, F, K, dev, folds=None, fold_bins=False):
+    """Bins, node ids (a twentieth parked, node 1 empty), g and h of one
+    level on the card."""
+    rng = np.random.default_rng(seed)
+    lead = () if folds is None else (folds,)
+    binned = rng.integers(0, B, size=lead * fold_bins + (n, F)).astype(np.uint8)
+    node = rng.integers(0, K, size=lead + (n,)).astype(np.int32)
+    node[node == 1] = 0
+    node[rng.random(size=lead + (n,)) < 0.05] = -1
+    g = rng.uniform(-1, 1, size=lead + (n,)).astype(np.float32)
+    h = rng.uniform(0, 0.25, size=lead + (n,)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (binned, node, g, h)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,folds", [(28, 2 ** level, None) for level in range(1, DEPTH)]
+                         + [(17, 4, None), (17, 4, 5), (28, 128, 3)])
+def test_partitioned_node_kernel_matches_plain(cuda_device, monkeypatch, F, K, folds):
+    """The partitioned walk at every HIGGS level (K = 2-128, F = 28, where
+    ``node_plan`` takes it), and, taken by force, at depth 3's last level
+    (K = 4, F = 17) and with fold axes (shared and per-fold bins), at a
+    ragged n with parked rows and an empty node: counts exactly equal, the
+    float32 sums within 1e-5 of each cell's absolute mass (plus 1e-4)."""
+    n = 100_003
+    fold_bins = folds == 3
+    binned, node, g, h = _level_inputs(K * F + (folds or 0), n, F, K, cuda_device, folds,
+                                       fold_bins)
+    budget = cuda_histogram.smem_budget(cuda_device)
+    assert cuda_histogram.node_plan(F, K, B, 4, budget, 1, folds or 1).partitioned == (
+        F == 28 and folds is None)
+    monkeypatch.setattr(cuda_histogram, "node_plan", lambda F, K, B, item, budget, bin_item,
+                        folds=1: cuda_histogram.partitioned_plan(F, K, B, item, budget, bin_item))
+    partitions = cuda_histogram.LAUNCHES["node_partition"]
+    got = cuda_histogram.node_histograms_cuda(binned, node, g, h, K, B)
+    torch.cuda.synchronize()
+    assert cuda_histogram.LAUNCHES["node_partition"] == partitions + 1
+    want = histogram.node_histograms(binned, node, g.double(), h.double(), K, B)
+    mass = histogram.node_histograms(binned, node, g.double().abs(), h.double(), K, B)
+    assert torch.equal(got.count.double(), want.count)
+    assert not bool(got.count[..., 1, :, :].any())
+    for stat, m in (("grad", mass.grad), ("hess", mass.hess), ("grad2", mass.grad2)):
+        err = (getattr(got, stat).double() - getattr(want, stat)).abs()
+        assert bool((err <= 1e-5 * m + 1e-4).all()), (stat, float(err.max()))
+    node.fill_(-1)  # every row parked: exactly zero
+    assert not any(bool(a.any()) for a in cuda_histogram.node_histograms_cuda(
+        binned, node, g, h, K, B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,folds,fold_bins", [
+    (100_003, 128, None, False), (40_000, 4, 5, False), (33_333, 16, 3, True), (31, 2, 2, False),
+])
+def test_partition_kernels_equal_the_plain_partition(cuda_device, n, K, folds, fold_bins):
+    """The count, scan and scatter kernels' sorted copies and offsets equal
+    ``histogram.node_partition``'s exactly: node order, row order within a
+    node, parked rows (−1 and ids outside ``[0, K)``) dropped, an empty node,
+    a fit with every row parked; float64 values and int32 bins too."""
+    binned, node, g, h = _level_inputs(n + K, n, 28, K, cuda_device, folds, fold_bins)
+    node[..., ::11] = K + 2
+    if folds:
+        node[1] = -1
+    cases = [(binned, g, h), (binned.int(), g.double(), h.double())]
+    for bins, gg, hh in cases:
+        got = cuda_histogram.node_partition_cuda(bins, node, gg, hh, K)
+        want = histogram.node_partition(bins.cpu(), node.cpu(), gg.cpu(), hh.cpu(), K)
+        torch.cuda.synchronize()
+        assert torch.equal(got.offsets.cpu(), want.offsets)
+        for f in range(want.offsets.shape[0]):
+            total = int(want.offsets[f, -1])
+            for name in ("bins", "grad", "hess"):
+                assert torch.equal(getattr(got, name)[f, :total].cpu(),
+                                   getattr(want, name)[f, :total]), (name, f)
+    if folds:
+        assert int(want.offsets[1, -1]) == 0
