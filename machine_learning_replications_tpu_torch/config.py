@@ -11,10 +11,10 @@ All configs are frozen dataclasses so they are hashable. This is a copy of
 ``machine_learning_replications_tpu/config.py`` (the port imports nothing of
 the JAX package): the field names and defaults are identical, so an
 ``ExperimentConfig`` JSON round-trips between the two packages unchanged.
-``GBDTConfig.histogram_backend`` keeps its four values; the PyTorch port
-maps 'auto'/'pallas' to the hand-written CUDA histogram kernel on a CUDA
-tensor and 'xla'/'matmul' to its plain PyTorch version
-(``ops.histogram.stump_histograms``, ``models.gbdt.resolve_hist_fn``).
+``GBDTConfig.histogram_backend`` keeps its four values for that round trip;
+the port has two behaviours for them (``models.gbdt.histogram_kernels``):
+'auto'/'pallas' take the hand-written CUDA histogram kernels, 'xla'/'matmul'
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -48,13 +48,11 @@ class GBDTConfig:
     # sklearn's per-refit enumeration; True re-derives candidates from each
     # fold's own rows (reference-exact, costs a [k, n, F] binned tensor).
     per_fold_binning: bool = False
-    # Histogram-statistics backend for the level-wise (depth ≥ 2) tree
-    # grower: 'matmul' = per-feature one-hot MXU contractions
-    # (ops.histogram.node_histograms_matmul — vmap-composable, exploits
-    # per-feature bin widths), 'pallas' = the VMEM-accumulating kernel
-    # (ops.pallas_histogram; measured on-chip at ~2× the XLA scatter-add —
-    # v5e, 200k rows, K=8; see the bench artifact's pallas_onchip block),
-    # 'xla' = segment_sum, 'auto' = matmul on TPU / xla elsewhere.
+    # Which histogram entries the fits call (models.gbdt.histogram_kernels).
+    # The port has two behaviours: 'auto' and 'pallas' = the hand-written
+    # CUDA kernels (their plain versions on a CPU tensor), 'xla' and
+    # 'matmul' = the plain PyTorch versions on any device. The four values
+    # are the JAX package's, kept so an ExperimentConfig JSON round-trips.
     histogram_backend: str = "auto"
 
 

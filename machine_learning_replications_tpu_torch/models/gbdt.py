@@ -4,22 +4,27 @@ Port of the JAX package's ``models/gbdt.py``. ``fit`` routes as the JAX
 ``fit`` does, over three engines:
 
   * depth 1 (``_fit_stumps``): every boosting stage over the loop-invariant
-    ``[n, F]`` bin matrix, each stage's split statistics from one
-    ``ops.histogram.stump_histograms`` pass — the hand-written CUDA stump
-    kernel on the card — and a cumulative sum over bins. The bins come from
-    device quantile binning on the fused 'hist' path (at least
-    ``DEVICE_BINNING_MIN_ROWS`` rows, u8 ids), else from host binning:
-    'exact' takes every unique-value midpoint (up to n + 1 bins, int32 ids),
-    'hist' below the row gate its quantile-capped midpoints;
+    ``[n, F]`` bin matrix, each stage's split statistics from one stump
+    histogram pass — the hand-written CUDA stump kernel on the card — and a
+    cumulative sum over bins. The bins come from device quantile binning on
+    the fused 'hist' path (at least ``DEVICE_BINNING_MIN_ROWS`` rows, u8
+    ids), else from host binning: 'exact' takes every unique-value midpoint
+    (up to n + 1 bins, int32 ids), 'hist' below the row gate its
+    quantile-capped midpoints;
   * the host single-stump engine ``_fit_stump_host`` (``n_estimators == 1``
     at the fused path's shape with host inputs), host numpy only;
-  * the level-wise grower (``max_depth >= 2`` in ``fit``, every depth in
-    ``fit_folds``): each tree is built level by level from per-(node,
-    feature, bin) histograms (``resolve_hist_fn``: the hand-written CUDA node
-    kernel on the card), friedman split selection and Newton leaves from
-    float64 leaf sums (``resolve_leaf_fn``: the hand-written leaf-sum kernel
-    on the card), in heap layout (root 0, children 2i+1 / 2i+2; non-split
-    nodes self-loop).
+  * the level-wise stage loop ``run_levelwise`` (``max_depth >= 2`` in
+    ``fit``, every depth in ``fit_folds``; also ``fit_resumable`` and the
+    sharded ``parallel.hist_trainer``): each tree is built level by level
+    by the one grower (``make_tree_grower``) from per-(node, feature, bin)
+    histograms, friedman split selection and Newton leaves from float64
+    leaf sums, in heap layout (root 0, children 2i+1 / 2i+2; non-split nodes
+    self-loop).
+
+``histogram_kernels`` is the one place the histogram entries are chosen
+from ``cfg.histogram_backend``: the hand-written CUDA kernels
+(``ops.cuda_histogram``; their plain versions on a CPU tensor) or the plain
+versions (``ops.histogram``) on any device.
 
 Numerics match sklearn's binomial-deviance GBC as the JAX fit does:
 F₀ = prior log-odds, residual r = y − σ(F), leaves re-valued by the Newton
@@ -30,10 +35,12 @@ below float64: ``ops.histogram.newton_leaf_value``), F += lr·leaf, and
 The stage loops are eager PyTorch with no host sync: split columns and rows
 are picked with ``index_select``/``gather``/``take`` on device indices,
 per-stage results are written into preallocated tensors, and the binning
-NaN flag is read once, after the loop. The grower carries a leading fit axis
-``k`` (1 for ``fit``, the folds for ``fit_folds``), so all of a level's
-folds share one histogram launch — where the JAX package ``vmap``s the folds
-and so keeps its Pallas kernel off them.
+NaN flag is read once, after the loop. The level-wise loop carries a
+leading fit axis ``k`` (1 for ``fit``, the folds for ``fit_folds``), so all
+of a level's folds share one histogram launch — where the JAX package
+``vmap``s the folds and so keeps its Pallas kernel off them. Per-row weights
+(the fold masks, the sharded fit's padding and sample weights) and a
+cross-shard ``reduce_fn`` are its only other differences.
 
 Each layer boundary is an ``obs.spans.region`` (free with no tracer
 installed; it launches nothing and never waits): ``gbdt.fit`` per call,
@@ -51,7 +58,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -112,76 +119,67 @@ def bin_budget_capped(cfg: GBDTConfig) -> int:
     return cfg.n_bins if b is None else b
 
 
-def resolve_backend(cfg: GBDTConfig, device: torch.device) -> str:
-    """'auto' → 'pallas' (the hand kernel, named after the TPU kernel it
-    replaces) on a CUDA device, the plain 'xla' version elsewhere; the
-    explicit values pass through. The JAX package picks 'matmul' on TPU."""
+class HistogramKernels(NamedTuple):
+    """The three histogram entries a fit calls."""
+
+    stump: Callable  # (binned [n, F], g [n], h [n], B) -> [2, F, B]
+    node: Callable   # (binned, node_local, g, h, K, B) -> histogram.NodeHistograms
+    leaf: Callable   # (node [k, n], g [k, n], h [k, n], k, NN) -> [2, k, NN + 1] float64
+
+
+def histogram_kernels(cfg: GBDTConfig) -> HistogramKernels:
+    """The one place a fit's histogram entries are chosen, from
+    ``cfg.histogram_backend``. The field keeps the JAX package's four values;
+    the port has two behaviours: 'auto' and 'pallas' take the hand-written
+    kernels (``ops.cuda_histogram``, each of which computes its plain version
+    on a CPU tensor), 'xla' and 'matmul' the plain versions
+    (``ops.histogram``) on any device."""
     b = cfg.histogram_backend
-    if b not in histogram.BACKENDS:
-        raise ValueError(
-            f"unknown histogram_backend {b!r}; "
-            "expected 'auto', 'matmul', 'pallas' or 'xla'"
-        )
-    if b == "auto":
-        return "pallas" if torch.device(device).type == "cuda" else "xla"
-    return b
+    if b in ("auto", "pallas"):
+        from machine_learning_replications_tpu_torch.ops import cuda_histogram
+
+        return HistogramKernels(cuda_histogram.stump_histograms_cuda,
+                                cuda_histogram.node_histograms_cuda,
+                                cuda_histogram.leaf_sums_cuda)
+    if b in ("xla", "matmul"):
+        return HistogramKernels(histogram.stump_histograms_reference,
+                                histogram.node_histograms, histogram.leaf_sums)
+    raise ValueError(f"unknown histogram_backend {b!r}; "
+                     "expected 'auto', 'matmul', 'pallas' or 'xla'")
 
 
-def resolve_hist_fn(backend: str, feature_bins: tuple[int, ...] | None = None):
-    """Node-histogram implementation for a resolved backend name: 'pallas'
-    (or 'auto') → ``cuda_histogram.node_histograms_cuda`` (the hand kernel
-    on a CUDA tensor, its plain version on a CPU tensor); 'xla' and 'matmul'
-    → the plain ``histogram.node_histograms`` on any device.
-    ``feature_bins`` only shapes the JAX matmul backend; it is accepted and
-    unused."""
-    del feature_bins
-    if backend in ("auto", "pallas"):
-        from machine_learning_replications_tpu_torch.ops.cuda_histogram import (
-            node_histograms_cuda,
-        )
-
-        return node_histograms_cuda
-    if backend in ("xla", "matmul"):
-        return histogram.node_histograms
-    raise ValueError(f"unknown histogram backend {backend!r}; expected one of "
-                     f"{histogram.BACKENDS}")
+def _same(a: torch.Tensor) -> torch.Tensor:
+    return a
 
 
-def resolve_leaf_fn(backend: str):
-    """The grower's leaf sums for a resolved backend name, chosen as
-    ``resolve_hist_fn`` chooses: 'pallas' (or 'auto') →
-    ``cuda_histogram.leaf_sums_cuda`` (the hand leaf-sum kernel on a CUDA
-    tensor, its plain version on a CPU tensor); 'xla' and 'matmul' → the
-    plain ``histogram.leaf_sums`` (two float64 ``index_add_``) on any
-    device."""
-    if backend in ("auto", "pallas"):
-        from machine_learning_replications_tpu_torch.ops.cuda_histogram import leaf_sums_cuda
-
-        return leaf_sums_cuda
-    if backend in ("xla", "matmul"):
-        return histogram.leaf_sums
-    raise ValueError(f"unknown histogram backend {backend!r}; expected one of "
-                     f"{histogram.BACKENDS}")
-
-
-def _prior_log_odds(y: torch.Tensor) -> torch.Tensor:
-    """F₀ = log-odds of the class prior, as a device scalar (no sync)."""
-    p1 = torch.mean(y)
+def _prior_log_odds(y: torch.Tensor, weights: torch.Tensor | None = None,
+                    reduce_fn=_same) -> torch.Tensor:
+    """F₀ = log-odds of the class prior, as a device scalar (no sync); with
+    ``[k, n]`` weights, ``[k]`` weighted priors from one ``reduce_fn`` of the
+    stacked row sums."""
+    if weights is None:
+        p1 = torch.mean(y)
+    else:
+        n_real, sum_y = reduce_fn(torch.stack([torch.sum(weights, dim=1),
+                                               torch.sum(y * weights, dim=1)]))
+        p1 = sum_y / n_real
     return torch.log(p1 / (1.0 - p1))
 
 
 def forest_to_params(
-    feature: torch.Tensor,    # [M, NN] int32
-    threshold: torch.Tensor,  # [M, NN]
-    value: torch.Tensor,      # [M, NN]
-    is_split: torch.Tensor,   # [M, NN] bool
-    init_raw: torch.Tensor,
+    feature: torch.Tensor,    # [M, NN] int32, or [k, M, NN]
+    threshold: torch.Tensor,  # [M, NN], or [k, M, NN]
+    value: torch.Tensor,      # [M, NN], or [k, M, NN]
+    is_split: torch.Tensor,   # [M, NN] bool, or [k, M, NN]
+    init_raw: torch.Tensor,   # scalar, or [k]
     learning_rate: float,
     max_depth: int,
 ) -> TreeEnsembleParams:
-    """Heap-layout forest tensors → the inference dataclass (self-loop leaves)."""
-    M, NN = feature.shape
-    idx = torch.arange(NN, dtype=torch.int32, device=feature.device)[None, :]
+    """Heap-layout forest tensors → the inference dataclass (self-loop
+    leaves). With a leading fit axis (``fit_folds``) every tensor carries
+    it, ``learning_rate`` included."""
+    dev = feature.device
+    idx = torch.arange(feature.shape[-1], dtype=torch.int32, device=dev)
     left = torch.where(is_split, 2 * idx + 1, idx).to(torch.int32)
     right = torch.where(is_split, 2 * idx + 2, idx).to(torch.int32)
     return TreeEnsembleParams(
@@ -190,8 +188,9 @@ def forest_to_params(
         left=left,
         right=right,
         value=value,
-        init_raw=torch.as_tensor(init_raw, device=feature.device),
-        learning_rate=torch.tensor(learning_rate, dtype=value.dtype, device=feature.device),
+        init_raw=torch.as_tensor(init_raw, device=dev),
+        # filled on the host and copied: no fill kernel on the card
+        learning_rate=torch.full(feature.shape[:-2], learning_rate, dtype=value.dtype).to(dev),
         max_depth=max_depth,
     )
 
@@ -218,51 +217,50 @@ def fit(
         binning, then the same stage loop over the host bins
         (``_fit_stumps``) — under 'exact' every unique-value midpoint is a
         candidate, so the bins go to the kernel as int32 above 256;
-      * ``max_depth >= 2``: the level-wise grower (``_fit_binned``).
+      * ``max_depth >= 2``: the level-wise stage loop (``run_levelwise``).
 
     The fit runs in ``float_dtype(X)``.
     """
     with region("gbdt.fit"):
         dev = resolve_device(device)
-        backend = resolve_backend(cfg, dev)  # validate eagerly
-        bin_budget(cfg)                      # validates the splitter
+        kernels = histogram_kernels(cfg)  # validate eagerly
+        bin_budget(cfg)                   # validates the splitter
         n = X.shape[0]
         if (cfg.max_depth == 1 and cfg.n_estimators == 1 and uses_fused_hist1(cfg, n)
                 and isinstance(X, np.ndarray) and isinstance(y, np.ndarray)):
             return _fit_stump_host(X, y, cfg, dev)
         if uses_fused_hist1(cfg, n):
-            return _fit_fused(X, y, cfg, backend, dev)
+            return _fit_fused(X, y, cfg, kernels, dev)
         Xt = torch.as_tensor(X)
         dtype = float_dtype(Xt)
-        yj = torch.as_tensor(y, device=dev)
+        ys = torch.as_tensor(y, device=dev).to(dtype)
         with region("gbdt.binning"):
             bins = default_bins(Xt, cfg, dev)
             binned = _device_bins(bins.binned, bins.max_bins, dev)
             thresholds = torch.as_tensor(bins.thresholds, dtype=dtype, device=dev)
             if cfg.max_depth == 1:
                 counts = _stump_counts(binned, thresholds)
-        stages = dict(
-            n_stages=cfg.n_estimators,
-            learning_rate=cfg.learning_rate,
-            min_samples_split=cfg.min_samples_split,
-            min_samples_leaf=cfg.min_samples_leaf,
-            backend=backend,
-        )
         if cfg.max_depth == 1:
             feature, threshold, value, is_split, deviance, _ = _fit_stumps(
-                binned, thresholds, counts, yj.to(dtype), **stages)
+                binned, thresholds, counts, ys, cfg, kernels)
         else:
-            feature, threshold, value, is_split, deviance = _fit_binned(
-                binned, thresholds, yj, depth=cfg.max_depth, max_bins=bins.max_bins, **stages)
+            carry = levelwise_init(_prior_log_odds(ys), ys.shape[0], cfg.n_estimators,
+                                   cfg.max_depth)
+            grow_tree = make_tree_grower(
+                binned, thresholds, depth=cfg.max_depth, max_bins=bins.max_bins,
+                min_samples_split=cfg.min_samples_split,
+                min_samples_leaf=cfg.min_samples_leaf, kernels=kernels)
+            _, feature, threshold, value, is_split, deviance = run_levelwise(
+                grow_tree, ys, carry, 0, cfg.n_estimators, learning_rate=cfg.learning_rate)
         params = forest_to_params(
             feature, threshold, value, is_split,
-            init_raw=_prior_log_odds(yj.to(dtype)), learning_rate=cfg.learning_rate,
+            init_raw=_prior_log_odds(ys), learning_rate=cfg.learning_rate,
             max_depth=cfg.max_depth,
         )
         return params, {"train_deviance": deviance.cpu().numpy()}
 
 
-def _fit_fused(X, y, cfg: GBDTConfig, backend: str, dev: torch.device):
+def _fit_fused(X, y, cfg: GBDTConfig, kernels: HistogramKernels, dev: torch.device):
     """The fused depth-1 'hist' regime of ``fit``: quantile binning on the
     device (u8 ids up to 256 bins), then ``_fit_stumps``. The binning NaN
     flag is read once, after every stage is queued."""
@@ -276,12 +274,7 @@ def _fit_fused(X, y, cfg: GBDTConfig, backend: str, dev: torch.device):
         counts = _stump_counts(binned, thresholds)
     feature, threshold, value, is_split, deviance, f0 = _fit_stumps(
         binned, thresholds, counts, torch.as_tensor(y, device=dev).to(thresholds.dtype),
-        n_stages=cfg.n_estimators,
-        learning_rate=cfg.learning_rate,
-        min_samples_split=cfg.min_samples_split,
-        min_samples_leaf=cfg.min_samples_leaf,
-        backend=backend,
-    )
+        cfg, kernels)
     if bool(nan_flag):
         raise ValueError("input contains NaN; impute before binning")
     params = forest_to_params(
@@ -319,29 +312,29 @@ def fit_resumable(
     from machine_learning_replications_tpu_torch.persist import checkpoint
 
     dev = resolve_device(device)
-    backend = resolve_backend(cfg, dev)
+    kernels = histogram_kernels(cfg)
     dtype = float_dtype(torch.as_tensor(X))
     if bins is None:
         bins = binning.bin_features(to_host(X), bin_budget(cfg))
     binned = _device_bins(bins.binned, bins.max_bins, dev)
     thresholds = torch.as_tensor(bins.thresholds, dtype=dtype, device=dev)
-    yj = torch.as_tensor(y, device=dev)
-    ys = yj.to(dtype)
+    ys = torch.as_tensor(y, device=dev).to(dtype)
     n_stages = cfg.n_estimators
-    opts = dict(learning_rate=cfg.learning_rate, min_samples_split=cfg.min_samples_split,
-                min_samples_leaf=cfg.min_samples_leaf, backend=backend)
     if cfg.max_depth == 1:
         carry = _stump_init(ys, _prior_log_odds(ys), n_stages)
         counts = _stump_counts(binned, thresholds)
 
         def run(carry, s, e):
-            return _run_stumps(binned, thresholds, counts, ys, carry, s, e, **opts)
+            return _run_stumps(binned, thresholds, counts, ys, carry, s, e, cfg, kernels)
     else:
-        carry = _binned_init(thresholds, yj, n_stages, cfg.max_depth)
+        carry = levelwise_init(_prior_log_odds(ys), ys.shape[0], n_stages, cfg.max_depth)
+        grow_tree = make_tree_grower(
+            binned, thresholds, depth=cfg.max_depth, max_bins=bins.max_bins,
+            min_samples_split=cfg.min_samples_split, min_samples_leaf=cfg.min_samples_leaf,
+            kernels=kernels)
 
         def run(carry, s, e):
-            return _run_binned(binned, thresholds, yj, carry, s, e, depth=cfg.max_depth,
-                               max_bins=bins.max_bins, **opts)
+            return run_levelwise(grow_tree, ys, carry, s, e, learning_rate=cfg.learning_rate)
 
     start, restored = checkpoint.restore_latest_step(checkpoint_dir, device=dev)
     if start:
@@ -430,22 +423,16 @@ def _fit_stumps(
     thresholds: torch.Tensor,  # [F, B-1], +inf past a feature's last boundary
     counts: torch.Tensor,      # [1, F, B-1] rows with bin <= b (_stump_counts)
     ys: torch.Tensor,          # [n] labels in the working dtype
-    *,
-    n_stages: int,
-    learning_rate: float,
-    min_samples_split: int,
-    min_samples_leaf: int,
-    backend: str,
+    cfg: GBDTConfig,
+    kernels: HistogramKernels,
 ):
-    """All stages of a depth-1 fit over the loop-invariant bin matrix →
-    ``(feature, threshold, value, is_split, deviance, f0)``, the forest in
-    ``[n_stages, 3]`` heap layout, all on ``binned``'s device."""
+    """All ``cfg.n_estimators`` stages of a depth-1 fit over the
+    loop-invariant bin matrix → ``(feature, threshold, value, is_split,
+    deviance, f0)``, the forest in ``[n_stages, 3]`` heap layout, all on
+    ``binned``'s device."""
     f0 = _prior_log_odds(ys)
-    carry = _run_stumps(
-        binned, thresholds, counts, ys, _stump_init(ys, f0, n_stages), 0, n_stages,
-        learning_rate=learning_rate, min_samples_split=min_samples_split,
-        min_samples_leaf=min_samples_leaf, backend=backend,
-    )
+    carry = _run_stumps(binned, thresholds, counts, ys, _stump_init(ys, f0, cfg.n_estimators),
+                        0, cfg.n_estimators, cfg, kernels)
     return (*carry[1:], f0)
 
 
@@ -471,11 +458,8 @@ def _run_stumps(
     carry,
     start: int,
     stop: int,
-    *,
-    learning_rate: float,
-    min_samples_split: int,
-    min_samples_leaf: int,
-    backend: str,
+    cfg: GBDTConfig,
+    kernels: HistogramKernels,
 ):
     """Stages ``[start, stop)`` of a depth-1 fit from ``carry``
     (``_stump_init``'s layout) and the per-bin row counts ``CL``
@@ -488,7 +472,7 @@ def _run_stumps(
     device-binning gate). The JAX ``_fit_stumps`` reads boundary sums off a
     replicated sorted ``[F, F, n]`` layout because the TPU serialises
     scatters and gathers; here each stage's split statistics come from one
-    ``histogram.stump_histograms`` pass (on the card, the hand-written stump
+    ``kernels.stump`` pass (on the card, the hand-written stump
     kernel, at B = n + 1 bins under 'exact' on a continuous column) and a
     cumulative sum over bins — the same sums, added in another order.
     No host sync: split columns are picked with ``index_select`` on device
@@ -498,6 +482,7 @@ def _run_stumps(
     n_bins = thresholds.shape[1] + 1
     dtype = thresholds.dtype
     dev = binned.device
+    learning_rate = cfg.learning_rate
     CT = torch.tensor([n], dtype=dtype, device=dev)
     Bm1 = n_bins - 1
 
@@ -514,7 +499,7 @@ def _run_stumps(
                 g = ys - p
                 h = p * (1.0 - p)
             with region("gbdt.hist", level=0):
-                hist = histogram.stump_histograms(binned, g, h, n_bins, backend=backend)
+                hist = kernels.stump(binned, g, h, n_bins)
             with region("gbdt.split", level=0):
                 GL = torch.cumsum(hist[0], dim=1)[:, :-1][None]  # [1, F, B-1]
                 HL = torch.cumsum(hist[1], dim=1)[:, :-1]        # [F, B-1]
@@ -522,7 +507,7 @@ def _run_stumps(
                 HT = torch.sum(h)
                 sp = histogram.select_splits(
                     GL, CL, GT[None], CT, torch.sum(g * g)[None], thresholds,
-                    min_samples_split, min_samples_leaf,
+                    cfg.min_samples_split, cfg.min_samples_leaf,
                 )
                 do = sp.do_split                                 # [1]
                 fstar, bstar = sp.feature, sp.boundary           # [1] each
@@ -706,45 +691,27 @@ def fit_folds(
     dev = resolve_device(device)
     # The JAX package remaps 'pallas' off its fold fits (its kernel has no
     # vmap batching rule); the port's node kernel takes the fold axis itself.
-    backend = resolve_backend(cfg, dev)
-    masks = torch.as_tensor(to_host(train_masks), device=dev)
-    k = masks.shape[0]
+    kernels = histogram_kernels(cfg)
     dtype = float_dtype(torch.as_tensor(X))
+    w = torch.as_tensor(to_host(train_masks), device=dev).to(dtype)
     if bins is None and cfg.per_fold_binning:
         binned, thresholds, _, max_bins = _per_fold_bins(X, train_masks, cfg)
     else:
         if bins is None:
             bins = binning.bin_features(to_host(X), bin_budget_capped(cfg))
         binned, thresholds, max_bins = bins.binned, bins.thresholds, bins.max_bins
-    feature, threshold, value, is_split, f0 = _run_binned_folds(
-        _device_bins(binned, max_bins, dev),
-        torch.as_tensor(thresholds, dtype=dtype, device=dev),
-        torch.as_tensor(y, device=dev),
-        masks,
-        n_stages=cfg.n_estimators,
-        depth=cfg.max_depth,
-        max_bins=max_bins,
-        learning_rate=cfg.learning_rate,
-        min_samples_split=cfg.min_samples_split,
-        min_samples_leaf=cfg.min_samples_leaf,
-        backend=backend,
-    )
-    return _fold_params(feature, threshold, value, is_split, f0, cfg, k)
-
-
-def _fold_params(feature, threshold, value, is_split, f0, cfg: GBDTConfig, k: int):
-    NN = feature.shape[2]
-    idx = torch.arange(NN, dtype=torch.int32, device=feature.device)[None, None, :]
-    left = torch.where(is_split, 2 * idx + 1, idx).to(torch.int32)
-    right = torch.where(is_split, 2 * idx + 2, idx).to(torch.int32)
-    # Every tensor carries the leading fold axis (learning_rate included).
-    return TreeEnsembleParams(
-        feature=feature, threshold=threshold, left=left, right=right,
-        value=value, init_raw=f0,
-        learning_rate=torch.full((k,), cfg.learning_rate, dtype=threshold.dtype,
-                                 device=threshold.device),
-        max_depth=cfg.max_depth,
-    )
+    ys = torch.as_tensor(y, device=dev).to(dtype)
+    f0 = _prior_log_odds(ys, w)
+    grow_tree = make_tree_grower(
+        _device_bins(binned, max_bins, dev), torch.as_tensor(thresholds, dtype=dtype, device=dev),
+        depth=cfg.max_depth, max_bins=max_bins, min_samples_split=cfg.min_samples_split,
+        min_samples_leaf=cfg.min_samples_leaf, kernels=kernels,
+        node_init=torch.where(w > 0, 0, -1).to(torch.int32))
+    carry = levelwise_init(f0, w.shape[1], cfg.n_estimators, cfg.max_depth, deviance=False)
+    _, feature, threshold, value, is_split, _ = run_levelwise(
+        grow_tree, ys, carry, 0, cfg.n_estimators, learning_rate=cfg.learning_rate, weights=w)
+    return forest_to_params(feature, threshold, value, is_split, init_raw=f0,
+                            learning_rate=cfg.learning_rate, max_depth=cfg.max_depth)
 
 
 def fold_bins(X: np.ndarray, train_mask, cfg: GBDTConfig) -> binning.BinnedFeatures:
@@ -790,17 +757,17 @@ def make_tree_grower(
     max_bins: int,
     min_samples_split: int,
     min_samples_leaf: int,
-    backend: str,
+    kernels: HistogramKernels,
     node_init: torch.Tensor | None = None,  # [k, n] int32, −1 ⇒ inactive row
-    reduce_fn=lambda a: a,     # cross-shard reduction (a sum over data shards)
+    reduce_fn=_same,           # cross-shard reduction (a sum over data shards)
 ):
     """Build the level-synchronous tree-growth step: one copy of the split
-    bookkeeping, routing and Newton-leaf math, for the single fit (k = 1)
-    and the fold fits alike. A sharded caller would differ only in
-    ``reduce_fn`` (histogram and leaf partials summed over shards) and
-    ``node_init`` (padding rows parked at −1). ``backend`` (resolved)
-    picks the node histograms (``resolve_hist_fn``) and the leaf sums
-    (``resolve_leaf_fn``).
+    bookkeeping, routing and Newton-leaf math, for the single fit (k = 1),
+    the fold fits and the sharded fit alike. The fold fits park their
+    held-out rows at −1 through ``node_init``; the sharded fit parks its
+    padding rows so and sums histogram and leaf partials over shards through
+    ``reduce_fn``. ``kernels`` (``histogram_kernels``) gives the node
+    histograms and the leaf sums.
 
     Returns ``grow_tree(g, h) -> (feat_t, thr_t, val_t, split_t, node)``:
     for ``[k, n]`` gradients and hessians, k trees as ``[k, NN]`` heap-layout
@@ -817,7 +784,7 @@ def make_tree_grower(
     else:
         row_base = rows * F
     inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
-    hist_fn, leaf_fn = resolve_hist_fn(backend), resolve_leaf_fn(backend)
+    hist_fn, leaf_fn = kernels.node, kernels.leaf
 
     def grow_tree(g: torch.Tensor, h: torch.Tensor):
         k = g.shape[0]
@@ -859,141 +826,82 @@ def make_tree_grower(
     return grow_tree
 
 
-def _binned_init(thresholds: torch.Tensor, y: torch.Tensor, n_stages: int, depth: int):
-    """Boosting carry at stage 0 for the level-wise path (the
-    checkpoint/resume unit): raw scores, the four forest tensors, deviance."""
-    n = y.shape[0]
-    NN = 2 ** (depth + 1) - 1
-    dtype = thresholds.dtype
-    dev = y.device
-    f0 = _prior_log_odds(y.to(dtype))
+def levelwise_init(f0: torch.Tensor, n: int, n_stages: int, depth: int, *,
+                   deviance: bool = True):
+    """The level-wise boosting carry at stage 0 (the checkpoint/resume
+    unit): raw scores at the prior ``f0``, the four forest tensors in heap
+    layout and the deviance path. A scalar ``f0`` gives one fit's carry (raw
+    ``[n]``, forest ``[n_stages, NN]``); ``[k]`` priors lead raw and forest
+    with the fit axis. The fold fits keep no deviance (``deviance=False``:
+    ``None`` in its place)."""
+    lead, dtype, dev = f0.shape, f0.dtype, f0.device
+    shape = (*lead, n_stages, 2 ** (depth + 1) - 1)
     return (
-        f0.expand(n).clone(),
-        torch.zeros((n_stages, NN), dtype=torch.int32, device=dev),
-        torch.full((n_stages, NN), torch.inf, dtype=dtype, device=dev),
-        torch.zeros((n_stages, NN), dtype=dtype, device=dev),
-        torch.zeros((n_stages, NN), dtype=torch.bool, device=dev),
-        torch.zeros(n_stages, dtype=dtype, device=dev),
+        f0[..., None].expand(*lead, n).clone(),
+        torch.zeros(shape, dtype=torch.int32, device=dev),
+        torch.full(shape, torch.inf, dtype=dtype, device=dev),
+        torch.zeros(shape, dtype=dtype, device=dev),
+        torch.zeros(shape, dtype=torch.bool, device=dev),
+        torch.zeros(n_stages, dtype=dtype, device=dev) if deviance else None,
     )
 
 
-def _fit_binned(
-    binned: torch.Tensor,      # [n, F] integer bin ids
-    thresholds: torch.Tensor,  # [F, B-1]
-    y: torch.Tensor,           # [n] ∈ {0, 1}
-    *,
-    n_stages: int,
-    depth: int,
-    max_bins: int,
-    learning_rate: float,
-    min_samples_split: int,
-    min_samples_leaf: int,
-    backend: str = "xla",
-):
-    """All stages of one level-wise fit → ``(feature, threshold, value,
-    is_split, deviance)``."""
-    carry = _run_binned(
-        binned, thresholds, y,
-        _binned_init(thresholds, y, n_stages, depth),
-        0, n_stages,
-        depth=depth, max_bins=max_bins, learning_rate=learning_rate,
-        min_samples_split=min_samples_split, min_samples_leaf=min_samples_leaf,
-        backend=backend,
-    )
-    return carry[1:]
-
-
-def _run_binned(
-    binned: torch.Tensor,      # [n, F] integer bin ids
-    thresholds: torch.Tensor,  # [F, B-1]
-    y: torch.Tensor,           # [n] ∈ {0, 1}
-    carry,
+def run_levelwise(
+    grow_tree,                 # make_tree_grower's step
+    y: torch.Tensor,           # [n] labels in the working dtype
+    carry,                     # levelwise_init's layout
     start: int,
     stop: int,
     *,
-    depth: int,
-    max_bins: int,
     learning_rate: float,
-    min_samples_split: int,
-    min_samples_leaf: int,
-    backend: str = "xla",
+    weights: torch.Tensor | None = None,  # [k, n]; None: one unweighted fit
+    reduce_fn=_same,
 ):
-    """Stages ``[start, stop)`` of a level-wise fit from ``carry``
-    (``_binned_init``'s layout). The forest and deviance tensors of the carry
-    are written in place; the new carry is returned."""
-    dtype = thresholds.dtype
-    yf = y.to(dtype)
-    grow_tree = make_tree_grower(
-        binned, thresholds,
-        depth=depth, max_bins=max_bins,
-        min_samples_split=min_samples_split,
-        min_samples_leaf=min_samples_leaf,
-        backend=backend,
-    )
+    """Stages ``[start, stop)`` of k level-wise fits from ``carry`` → the
+    new carry: the one stage loop of ``fit`` at depth ≥ 2,
+    ``fit_resumable``, ``fit_folds`` and ``parallel.hist_trainer.fit``. A
+    stage takes g and h from the sigmoid of the raw scores, grows one tree
+    per fit (``grow_tree``), adds its leaf values to the raw scores and, where
+    the carry keeps one, writes the deviance. The carry's forest and deviance
+    tensors are written in place, through ``[k, …]`` views where the carry
+    has no fit axis.
+
+    ``weights`` (the fold masks; the sharded fit's sample weights, 0 at its
+    padding rows) scale g, h, the update and the deviance's terms; the
+    grower must park their rows of weight 0 at −1 (``node_init``). Without
+    them the fit is one fit with every row active, and the stage does no
+    clamp and no multiply. ``reduce_fn`` sums the weighted deviance's
+    log-likelihood and weight partials over shards, in one call a stage."""
     raw, feats, thrs, vals, splits, devs = carry
-    zero = torch.zeros((), dtype=dtype, device=yf.device)
+    r = raw.view(-1, raw.shape[-1])                             # [k, n]
+    feats_k, thrs_k, vals_k, splits_k = (a.view(r.shape[0], *a.shape[-2:])
+                                         for a in (feats, thrs, vals, splits))
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    w = weights
+    if w is not None and devs is not None:
+        w_sum = torch.sum(w)
     for t in range(start, stop):
         with region("gbdt.stage", t=t):
             with region("gbdt.grad"):
-                p = torch.sigmoid(raw)
-                g = yf - p          # residual (negative gradient of deviance)
-                h = p * (1.0 - p)   # Newton denominator terms
-            feat_t, thr_t, val_t, split_t, node = grow_tree(g[None], h[None])
-            with region("gbdt.update"):
-                raw = raw + learning_rate * val_t[0][node[0].long()]
-                devs[t] = -2.0 * torch.mean(yf * raw - torch.logaddexp(zero, raw))
-                feats[t], thrs[t], vals[t], splits[t] = (feat_t[0], thr_t[0], val_t[0],
-                                                         split_t[0])
-    return raw, feats, thrs, vals, splits, devs
-
-
-def _run_binned_folds(
-    binned: torch.Tensor,       # [n, F] shared, or [k, n, F] per fold
-    thresholds: torch.Tensor,   # [F, B-1] shared, or [k, F, B-1]
-    y: torch.Tensor,            # [n]
-    train_masks: torch.Tensor,  # [k, n]
-    *,
-    n_stages: int,
-    depth: int,
-    max_bins: int,
-    learning_rate: float,
-    min_samples_split: int,
-    min_samples_leaf: int,
-    backend: str,
-):
-    """All stages of k masked fits at once → ``(feature, threshold, value,
-    is_split [k, n_stages, NN], f0 [k])``."""
-    dtype = thresholds.dtype
-    yf = y.to(dtype)
-    w = train_masks.to(dtype)
-    k, n = w.shape
-    NN = 2 ** (depth + 1) - 1
-    dev = yf.device
-    p1 = torch.sum(yf * w, dim=1) / torch.sum(w, dim=1)
-    f0 = torch.log(p1 / (1.0 - p1))
-    grow_tree = make_tree_grower(
-        binned, thresholds,
-        depth=depth, max_bins=max_bins,
-        min_samples_split=min_samples_split,
-        min_samples_leaf=min_samples_leaf,
-        backend=backend,
-        node_init=torch.where(w > 0, 0, -1).to(torch.int32),
-    )
-    raw = f0[:, None].expand(k, n).clone()
-    feats = torch.zeros((k, n_stages, NN), dtype=torch.int32, device=dev)
-    thrs = torch.full((k, n_stages, NN), torch.inf, dtype=dtype, device=dev)
-    vals = torch.zeros((k, n_stages, NN), dtype=dtype, device=dev)
-    splits = torch.zeros((k, n_stages, NN), dtype=torch.bool, device=dev)
-    for t in range(n_stages):
-        with region("gbdt.stage", t=t):
-            with region("gbdt.grad"):
-                p = torch.sigmoid(raw)
-                g = (yf - p) * w
-                h = p * (1.0 - p) * w
+                p = torch.sigmoid(r)
+                g = y - p          # residual (negative gradient of deviance)
+                h = p * (1.0 - p)  # Newton denominator terms
+                if w is not None:
+                    g, h = g * w, h * w
             feat_t, thr_t, val_t, split_t, node = grow_tree(g, h)
             with region("gbdt.update"):
-                raw = raw + learning_rate * torch.gather(
-                    val_t, 1, torch.clamp_min(node, 0).long()) * w
-                feats[:, t], thrs[:, t], vals[:, t], splits[:, t] = (feat_t, thr_t, val_t,
-                                                                     split_t)
-    return feats, thrs, vals, splits, f0
+                if w is None:
+                    r = r + learning_rate * val_t[0][node.long()]
+                else:
+                    r = r + learning_rate * torch.gather(
+                        val_t, 1, torch.clamp_min(node, 0).long()) * w
+                if devs is not None:
+                    terms = y * r - torch.logaddexp(zero, r)
+                    if w is None:
+                        devs[t] = -2.0 * torch.mean(terms)
+                    else:
+                        ll, n_real = reduce_fn(torch.stack([torch.sum(terms * w), w_sum]))
+                        devs[t] = -2.0 * ll / n_real
+                feats_k[:, t], thrs_k[:, t], vals_k[:, t], splits_k[:, t] = (feat_t, thr_t,
+                                                                             val_t, split_t)
+    return r.view(raw.shape), feats, thrs, vals, splits, devs

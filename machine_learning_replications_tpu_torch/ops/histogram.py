@@ -1,10 +1,8 @@
 """Histogram statistics and split search for GBDT training.
 
 Port of the parts of the JAX package's ``ops/histogram.py`` that the
-GBDT fits run: the guarded Newton leaf value, friedman-MSE split selection
-(``select_splits``, and ``best_splits`` over per-node histograms), and the
-per-stage ``[2, F, B]`` gradient/hessian histogram of the depth-1 fits with
-its ``backend`` switch.
+GBDT fits run: the guarded Newton leaf value and friedman-MSE split
+selection (``select_splits``, and ``best_splits`` over per-node histograms).
 
 The plain PyTorch versions of the histogram kernel live here too:
 
@@ -39,8 +37,6 @@ IMPURITY_EPS = 2.220446049250313e-16
 
 # sklearn _update_terminal_region zero guard on the Newton denominator
 NEWTON_DEN_GUARD = 1e-150
-
-BACKENDS = ("auto", "matmul", "pallas", "xla")
 
 
 def is_binary_labels(y: np.ndarray) -> bool:
@@ -158,35 +154,6 @@ def stump_histograms_reference(
         return out.index_add_(0, seg, flat)
 
     return torch.stack([acc(grad), acc(hess)]).reshape(2, F, B).to(dtype)
-
-
-def stump_histograms(
-    binned: torch.Tensor,  # [n, F] integer bin ids (narrow dtype preserved)
-    grad: torch.Tensor,    # [n]
-    hess: torch.Tensor,    # [n]
-    max_bins: int,
-    backend: str = "auto",
-) -> torch.Tensor:
-    """The per-stage statistics pass of the depth-1 fits → ``[2, F, B]``:
-    ``out[0, f, b] = Σ_i grad[i]·[binned[i, f] == b]`` and likewise for hess.
-
-    ``backend`` keeps ``GBDTConfig.histogram_backend``'s values. 'auto' and
-    'pallas' go to ``cuda_histogram.stump_histograms_cuda``: the hand
-    kernel on a CUDA tensor, its plain version on a CPU tensor (as the JAX
-    package runs its Pallas kernel in interpret mode off the TPU). 'xla' and
-    'matmul' ask for the plain version explicitly, on any device.
-    """
-    if backend in ("auto", "pallas"):
-        from machine_learning_replications_tpu_torch.ops.cuda_histogram import (
-            stump_histograms_cuda,
-        )
-
-        return stump_histograms_cuda(binned, grad, hess, max_bins)
-    if backend in ("xla", "matmul"):
-        return stump_histograms_reference(binned, grad, hess, max_bins)
-    raise ValueError(
-        f"unknown stump histogram backend {backend!r}; expected one of {BACKENDS}"
-    )
 
 
 def node_histograms(

@@ -4,10 +4,10 @@ depth-1 stage loop (``models.gbdt._run_stumps``).
 Port of the JAX package's ``parallel/stump_trainer.py``. Mesh mapping:
 
   data  — cohort rows. Each rank histograms its own row block with the
-          stump entry of the hand-written kernel (``ops.histogram.
-          stump_histograms``: the CUDA kernel on the card, its plain version
-          on the CPU), and the per-stage communication is one all-reduce of
-          the ``[2, F_loc, B]`` partials over 'data', plus a few scalars.
+          stump entry that ``gbdt.histogram_kernels`` picks (the CUDA kernel
+          on the card, its plain version on the CPU), and the per-stage
+          communication is one all-reduce of the ``[2, F_loc, B]`` partials
+          over 'data', plus a few scalars.
   model — feature tiles of the split search: each rank histograms and
           scores its ``F/model`` features' candidates; the global best is
           the best over the model shards (``mesh.best_over_model``, the
@@ -99,6 +99,7 @@ def fit(
     in JAX. Returns ``(params, {"train_deviance": host array})``."""
     if cfg.max_depth != 1:
         raise ValueError("the sharded stump trainer fits depth-1 configs")
+    kernels = gbdt.histogram_kernels(cfg)
     dev = mesh.device
     if bins is None:
         bins = binning.bin_features(to_host(X), gbdt.bin_budget(cfg))
@@ -138,8 +139,7 @@ def fit(
     feats, thrs, vals, splits, devs = _run(
         mesh, bl, yl, wl, thresholds, n_stages=cfg.n_estimators,
         learning_rate=cfg.learning_rate, min_samples_leaf=cfg.min_samples_leaf,
-        min_samples_split=cfg.min_samples_split, max_bins=B,
-        backend=gbdt.resolve_backend(cfg, dev))
+        min_samples_split=cfg.min_samples_split, max_bins=B, stump_fn=kernels.stump)
     params = gbdt.forest_to_params(
         feats, thrs, vals, splits,
         init_raw=prior_log_odds(y_host, sample_weight, dtype, dev),
@@ -172,7 +172,7 @@ def _run(
     min_samples_leaf: int,
     min_samples_split: int,
     max_bins: int,
-    backend: str,
+    stump_fn,
 ):
     """The stage loop on one rank → the replicated forest tensors
     ``(feature, threshold, value, is_split [n_stages, 3], deviance)``."""
@@ -196,7 +196,7 @@ def _run(
     def hist_cum(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Global left-of-boundary sums ``[2, F_loc, B-1]``: this rank's
         histograms over its tile, one all-reduce over 'data', a cumsum."""
-        hg = histogram.stump_histograms(cols, g, h, max_bins, backend=backend)
+        hg = stump_fn(cols, g, h, max_bins)
         hg = psum(hg, mesh, DATA_AXIS)
         return torch.cumsum(hg, dim=2)[:, :, :Bm1]
 

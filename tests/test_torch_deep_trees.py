@@ -174,7 +174,8 @@ def test_parked_rows_stay_at_nodes_that_stop_early():
     binned = torch.as_tensor(bins.binned)
     thresholds = torch.as_tensor(bins.thresholds, dtype=torch.float32)
     grow = gbdt.make_tree_grower(binned, thresholds, depth=DEPTH, max_bins=bins.max_bins,
-                                 min_samples_split=2, min_samples_leaf=1, backend="xla")
+                                 min_samples_split=2, min_samples_leaf=1,
+                                 kernels=gbdt.histogram_kernels(GBDTConfig(histogram_backend="xla")))
     p = torch.full((300,), float(y.mean()))
     g, h = (y - p)[None], (p * (1 - p))[None]
     feat, thr, val, split, node = grow(g, h)

@@ -34,7 +34,7 @@ from machine_learning_replications_tpu.ops import histogram as jhist
 from machine_learning_replications_tpu.ops.pallas_histogram import stump_histograms_pallas
 from machine_learning_replications_tpu_torch.config import GBDTConfig, SweepConfig
 from machine_learning_replications_tpu_torch.models import gbdt, sweep, tree
-from machine_learning_replications_tpu_torch.ops import cuda_histogram, histogram
+from machine_learning_replications_tpu_torch.ops import cuda_histogram
 
 FOREST = ("feature", "threshold", "left", "right")
 
@@ -199,8 +199,8 @@ def test_stump_histograms_at_exact_bins_match_jax(cohort, val_dtype):
     rng = np.random.default_rng(1)
     p = rng.uniform(0.05, 0.95, size=y.shape[0])
     g, h = (y - p).astype(val_dtype), (p * (1 - p)).astype(val_dtype)
-    got = histogram.stump_histograms(torch.as_tensor(bins.binned), torch.as_tensor(g),
-                                     torch.as_tensor(h), B)
+    got = cuda_histogram.stump_histograms_cuda(torch.as_tensor(bins.binned), torch.as_tensor(g),
+                                               torch.as_tensor(h), B)
     assert got.shape == (2, 17, B) and bins.binned.dtype == np.int32
     tol = 1e-9 if val_dtype == np.float64 else 1e-5
     for want in (stump_histograms_pallas(jnp.asarray(bins.binned), jnp.asarray(g),

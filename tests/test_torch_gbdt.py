@@ -23,6 +23,7 @@ from machine_learning_replications_tpu.models import gbdt as jgbdt
 from machine_learning_replications_tpu.models import tree as jtree
 from machine_learning_replications_tpu_torch.config import GBDTConfig
 from machine_learning_replications_tpu_torch.models import gbdt, tree
+from machine_learning_replications_tpu_torch.ops import histogram
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +98,7 @@ def test_fused_fit_rejects_nan(x17, fused_gate):
 @pytest.mark.parametrize("cfg,match", [
     # every depth-1 regime is ported since: each fit matches JAX
     (GBDTConfig(splitter="exact", n_estimators=8), "_fit_stumps"),
-    (GBDTConfig(splitter="hist", max_depth=2, n_estimators=8, n_bins=32), None),  # _fit_binned
+    (GBDTConfig(splitter="hist", max_depth=2, n_estimators=8, n_bins=32), None),  # run_levelwise
     (GBDTConfig(splitter="hist", n_estimators=1), "_fit_stump_host"),
 ])
 def test_unported_regimes_raise(x17, fused_gate, cfg, match):
@@ -130,13 +131,20 @@ def test_small_hist_fit_names_unported_path(x17):
 
 
 def test_resolve_backend():
-    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-    assert gbdt.resolve_backend(GBDTConfig(histogram_backend="auto"), cpu) == "xla"
-    assert gbdt.resolve_backend(GBDTConfig(histogram_backend="auto"), cuda) == "pallas"
-    for b in ("pallas", "xla", "matmul"):
-        assert gbdt.resolve_backend(GBDTConfig(histogram_backend=b), cuda) == b
-    with pytest.raises(ValueError, match="histogram_backend"):
-        gbdt.resolve_backend(GBDTConfig(histogram_backend="cuda"), cpu)
+    """``histogram_kernels``: 'auto' and 'pallas' pick the hand-written
+    entries, 'xla' and 'matmul' the plain versions, whatever the device; any
+    other value is one ValueError naming the field and its four values."""
+    from machine_learning_replications_tpu_torch.ops import cuda_histogram
+
+    hand = (cuda_histogram.stump_histograms_cuda, cuda_histogram.node_histograms_cuda,
+            cuda_histogram.leaf_sums_cuda)
+    plain = (histogram.stump_histograms_reference, histogram.node_histograms,
+             histogram.leaf_sums)
+    for b, want in (("auto", hand), ("pallas", hand), ("xla", plain), ("matmul", plain)):
+        assert tuple(gbdt.histogram_kernels(GBDTConfig(histogram_backend=b))) == want, b
+    with pytest.raises(ValueError, match="histogram_backend 'cuda'.*'auto', 'matmul', "
+                                         "'pallas' or 'xla'"):
+        gbdt.histogram_kernels(GBDTConfig(histogram_backend="cuda"))
 
 
 def test_uses_fused_hist1_matches_jax():

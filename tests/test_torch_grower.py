@@ -275,11 +275,12 @@ def test_leaf_sums_on_cpu_equal_the_index_add_pair(k, depth, val_dtype):
     assert cuda_histogram.LAUNCHES == before
     assert got.shape == (2, k, NN + 1) and got.dtype == torch.float64
     assert torch.equal(got, histogram.leaf_sums(node, g, h, k, NN))
-    for backend in histogram.BACKENDS:
-        assert torch.equal(gbdt.resolve_leaf_fn(backend)(node, g, h, k, NN), got)
+    for backend in ("auto", "matmul", "pallas", "xla"):
+        leaf = gbdt.histogram_kernels(GBDTConfig(histogram_backend=backend)).leaf
+        assert torch.equal(leaf(node, g, h, k, NN), got)
     assert cuda_histogram.LAUNCHES == before
-    with pytest.raises(ValueError, match="unknown histogram backend"):
-        gbdt.resolve_leaf_fn("cuda")
+    with pytest.raises(ValueError, match="unknown histogram_backend"):
+        gbdt.histogram_kernels(GBDTConfig(histogram_backend="cuda"))
 
 
 def test_fit_depth_float32_and_backends(x17):

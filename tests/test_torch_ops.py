@@ -21,6 +21,8 @@ from machine_learning_replications_tpu.ops.pallas_histogram import (
     node_histograms_pallas,
     stump_histograms_pallas,
 )
+from machine_learning_replications_tpu_torch.config import GBDTConfig
+from machine_learning_replications_tpu_torch.models import gbdt
 from machine_learning_replications_tpu_torch.ops import binning, cuda_histogram, histogram, linalg
 
 TOL = {np.float32: 1e-5, np.float64: 1e-9}
@@ -61,12 +63,12 @@ def test_stump_histograms_backends_on_cpu_use_plain_version(backend):
     binned, g, h = _stump_inputs(3, 500, 4, 16, np.uint8, np.float64)
     args = (torch.as_tensor(binned), torch.as_tensor(g), torch.as_tensor(h), 16)
     before = dict(cuda_histogram.LAUNCHES)
-    got = histogram.stump_histograms(*args, backend=backend)
+    got = gbdt.histogram_kernels(GBDTConfig(histogram_backend=backend)).stump(*args)
     assert cuda_histogram.LAUNCHES == before
     torch.testing.assert_close(got, histogram.stump_histograms_reference(*args),
                                rtol=0, atol=0)
-    with pytest.raises(ValueError, match="unknown stump histogram backend"):
-        histogram.stump_histograms(*args, backend="cuda")
+    with pytest.raises(ValueError, match="unknown histogram_backend"):
+        gbdt.histogram_kernels(GBDTConfig(histogram_backend="cuda"))
 
 
 @pytest.mark.parametrize("n,F,K,B", [(1000, 17, 4, 16), (257, 3, 8, 33), (64, 1, 2, 256)])
